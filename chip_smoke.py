@@ -11,23 +11,40 @@ outside a checkout of the repository. Phases, each fatal on failure:
 3. K1 ``warp_sample`` against its plain version at both main-path shapes
    (bf16) and one small f32 case, with out-of-range and NaN coordinates;
 4. K2 ``argmax_matmul`` against its plain version at the main-path shape;
-5. a small-input agreement check: the port on the card (f32, kernels)
-   against the port on the CPU (f32, plain versions);
-6. the main path at full width: RefVSR_MFID_8K (30 blocks, 48 channels,
-   seeded random weights, bf16) streaming 1080p windows of 7 frames into
-   4320x7680 frames through ``StreamRunner``: one ``forward_first`` and
-   three ``forward_stream`` windows, with each kernel's launches counted;
-   then one more streamed window traced by ``torch.profiler`` (each
-   kernel's device time inside the path), and each kernel held against its
-   plain version on the inputs the path gave it: every call of a further
-   streamed window, and the calls of a new first window at the shapes the
-   streamed window lacks (K1 from the low-res grid to the 2x one; K2 at
-   batch 7).
+5. the backward kernels against their plain backward passes: K1's at both
+   training shapes (f32) and the serving feature shape (bf16), with the
+   same poisoned flows, dx and dflow; K2's at the training shape (f32) and
+   the serving shape (bf16, 1,000 duplicated ref rows), d_lr and d_ref;
+6. small-input agreement checks: the port on the card (f32, kernels)
+   against the port on the CPU (f32, plain versions), for the stream and
+   for one training step (losses and gradients);
+7. the streaming path at full width: RefVSR_MFID_8K (30 blocks, 48
+   channels, seeded random weights, bf16) streaming 1080p windows of 7
+   frames into 4320x7680 frames through ``StreamRunner``: one
+   ``forward_first`` and three ``forward_stream`` windows, with each
+   kernel's launches counted; then one more streamed window traced by
+   ``torch.profiler`` (each kernel's device time inside the path), and each
+   kernel held against its plain version on the inputs the path gave it:
+   every call of a further streamed window, and the calls of a new first
+   window at the shapes the streamed window lacks (K1 from the low-res grid
+   to the 2x one; K2 at batch 7);
+8. the training path at full width: RefVSR_MFID_8K trained as the JAX
+   package trains it (loss '1*L1_lf+0.1*MFID_ref' at relu4_4, f32, patch
+   128, 7 frames, Adam with global-norm clipping and the CA schedule) on a
+   seeded synthetic batch, at batch 2 instead of the config's 8 (batch 8
+   does not fit one card). One ``Trainer.iteration`` (9 optimizer steps)
+   with the four kernels' launches counted; then one more step traced by
+   ``torch.profiler`` (where the step's time goes), each kernel held
+   against its plain version on the inputs that step gave it.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line. A kernel's
-``ms`` there is its device time in the profiled window; ``plain_ms``,
-``library_ms`` and ``bound_ms`` are summed over the captured window's calls.
-f32 comparisons run with TF32 off for both matmuls and cuDNN convolutions.
+``ms`` there is its device time in the profiled window (forward kernels:
+the streamed window; backward kernels: the training step); ``plain_ms``,
+``library_ms`` and ``bound_ms`` are summed over the captured window's or
+step's calls. f32 comparisons run with TF32 off for both matmuls and cuDNN
+convolutions; the full-width training runs under PyTorch's default f32
+policy (TF32 for cuDNN convolutions, not for matmuls), as a user's trainer
+would.
 """
 
 from __future__ import annotations
@@ -39,6 +56,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # published H100 SXM peaks (NVIDIA data sheet): bytes/s, bf16 tensor and
@@ -52,6 +70,12 @@ STREAM_WINDOWS = 3
 # K2 at the main path: ref rows, LR rows (both 3x3x16 patch vectors), and
 # duplicated ref rows
 K2_SHAPE = (32400, 129600, 144, 1000)
+# training: batch 2 (the config's 8 does not fit one card); K2 matches the
+# 2 x 7 frames' 32x32 LR features against 32x32 ref features
+TRAIN_BATCH = 2
+K2_TRAIN_SHAPE = (2 * T, 1024, 1024, 144, 16)
+# the largest K2 similarity matrix the matmul + max yardstick materialises
+K2_LIBRARY_MAX_BYTES = 16e9
 
 
 def log(*a):
@@ -99,6 +123,14 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def _finite(t):
+    return bool(torch.isfinite(t.float()).all())
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 # ---------------------------------------------------------------- K1
 
 
@@ -122,11 +154,29 @@ def _poison(flow, gen):
     return flow
 
 
+def _dead(in_hw, flow):
+    """The flow's dead points (outside the zeros-padding support, or NaN)."""
+    from refvsr_tpu_torch.ops.kernels.warp_sample import warp_coords
+    h, w = in_hw
+    sx, sy = warp_coords((h, w), flow)
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    return ~((x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1))
+
+
+def _library_grid(in_hw, flow, dtype):
+    """grid_sample's normalised grid for the same source coordinates; NaN
+    coordinates become far-outside ones (dead either way)."""
+    from refvsr_tpu_torch.ops.kernels.warp_sample import warp_coords
+    h, w = in_hw
+    sx, sy = warp_coords((h, w), flow)
+    return torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1],
+                       -1).nan_to_num(nan=-4.0).to(dtype)
+
+
 def k1_case(name, x, flow, tol, need_dead=False):
     """K1 kernel vs plain on one input; returns a dict of its numbers."""
     import torch.nn.functional as F
-    from refvsr_tpu_torch.ops.kernels.warp_sample import (warp_coords,
-                                                          warp_sample,
+    from refvsr_tpu_torch.ops.kernels.warp_sample import (warp_sample,
                                                           warp_sample_plain)
     got = warp_sample(x, flow)
     want = warp_sample_plain(x, flow)
@@ -134,10 +184,7 @@ def k1_case(name, x, flow, tol, need_dead=False):
     check(got.shape == want.shape and got.dtype == x.dtype,
           f"K1 {name}: shape/dtype {tuple(got.shape)} {got.dtype}")
     h, w = x.shape[1], x.shape[2]
-    sx, sy = warp_coords((h, w), flow)
-    x0, y0 = torch.floor(sx), torch.floor(sy)
-    live = (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
-    dead = ~live
+    dead = _dead((h, w), flow)
     n_dead = int(dead.sum())
     check(n_dead > 0 or not need_dead,
           f"K1 {name}: the case has no dead points")
@@ -149,8 +196,7 @@ def k1_case(name, x, flow, tol, need_dead=False):
 
     # the library yardstick: grid_sample on the same coordinates
     nchw = x.permute(0, 3, 1, 2)
-    grid = torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1],
-                       -1).to(x.dtype)
+    grid = _library_grid((h, w), flow, x.dtype)
 
     def library():
         return F.grid_sample(nchw, grid, mode="bilinear",
@@ -159,8 +205,7 @@ def k1_case(name, x, flow, tol, need_dead=False):
     ms = cuda_ms(lambda: warp_sample(x, flow))
     plain_ms = cuda_ms(lambda: warp_sample_plain(x, flow), iters=3)
     library_ms = cuda_ms(library)
-    nbytes = (x.numel() * x.element_size() + flow.numel()
-              * flow.element_size() + got.numel() * got.element_size())
+    nbytes = _nbytes(x, flow, got)
     flops = 8 * got.numel()     # four corner multiply-adds per value
     b_ms, b_by = bound_ms(nbytes, flops, x.dtype)
     log(f"K1 {name}: x {tuple(x.shape)} {x.dtype} -> {tuple(got.shape)}; "
@@ -194,7 +239,116 @@ def phase_k1(dev):
     return cases
 
 
+def k1_bwd_case(name, g, flow, x_shape, x=None, need_dead=False):
+    """K1 backward kernel vs its plain backward on one input (the
+    arguments of ``warp_sample_backward``); returns a dict of its numbers.
+
+    The reference is the plain backward in f32 on the same values: the
+    kernel sums in f32 and rounds once. Tolerance: 1e-5 of the reference's
+    largest magnitude in f32 (atomics and channel sums in another order),
+    2**-7 of it in bf16 (one rounding to bf16 is 2**-9). Dead points: dflow
+    exact zeros, and a gradient carried by dead points alone leaves dx all
+    zeros."""
+    from refvsr_tpu_torch.ops.kernels.warp_sample import (
+        warp_sample_backward, warp_sample_backward_plain)
+    dx, dflow = warp_sample_backward(g, flow, x_shape, x)
+    dx_p, dflow_p = warp_sample_backward_plain(
+        g.float(), flow.float(), x_shape, None if x is None else x.float())
+    torch.cuda.synchronize()
+    tol = 1e-5 if g.dtype == torch.float32 else 2.0 ** -7
+    err, limit = {}, {}
+    for label, got, want in (("dx", dx, dx_p), ("dflow", dflow, dflow_p)):
+        if want is None:
+            continue
+        check(got.shape == want.shape and got.dtype == g.dtype,
+              f"K1-bwd {name}: {label} shape/dtype")
+        check(_finite(got), f"K1-bwd {name}: {label} is not finite")
+        err[label] = float((got.float() - want).abs().max())
+        limit[label] = tol * float(want.abs().max())
+        check(err[label] <= limit[label], f"K1-bwd {name}: max |kernel - "
+              f"plain| of {label} {err[label]} > {limit[label]}")
+    n, h, w, c = x_shape
+    dead = _dead((h, w), flow)
+    n_dead = int(dead.sum())
+    check(n_dead > 0 or not need_dead,
+          f"K1-bwd {name}: the case has no dead points")
+    if dflow is not None:
+        check(bool((dflow[dead] == 0).all()),
+              f"K1-bwd {name}: dflow at dead points is not exact zeros")
+    if n_dead:
+        # a gradient that only dead points carry must leave dx all zeros
+        dx_dead, _ = warp_sample_backward(
+            torch.where(dead[..., None], g, torch.zeros_like(g)), flow,
+            x_shape)
+        check(bool((dx_dead == 0).all()),
+              f"K1-bwd {name}: dead points reached dx")
+    # where the plain sum is exactly zero the atomics' order may leave
+    # a rounding residue: reported, held only by the tolerance above
+    odd = (dx_p == 0) & (dx != 0)
+    worst = float(dx[odd].float().abs().max()) if bool(odd.any()) else 0.0
+
+    ms = cuda_ms(lambda: warp_sample_backward(g, flow, x_shape, x))
+    plain_ms = cuda_ms(lambda: warp_sample_backward_plain(
+        g, flow, x_shape, x), iters=3)
+    # the library yardstick: grid_sample's backward on the same coordinates
+    inp = (x if x is not None else torch.zeros(x_shape, dtype=g.dtype,
+                                               device=g.device))
+    inp = inp.permute(0, 3, 1, 2)
+    g_nchw = g.permute(0, 3, 1, 2)
+    grid = _library_grid((h, w), flow, g.dtype)
+    mask = [True, x is not None]
+    library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g_nchw, inp, grid, 0, 0, False, mask))
+    # bytes: flow and g in, dx out; x in and dflow out when dflow is asked
+    nbytes = _nbytes(flow, g) + n * h * w * c * g.element_size()
+    flops = 8 * g.numel()       # four multiply-adds per value
+    if x is not None:
+        nbytes += _nbytes(x, flow)
+        flops += 14 * g.numel()     # corner differences and their weights
+    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+    log(f"K1-bwd {name}: g {tuple(g.shape)} {g.dtype} -> dx {x_shape}"
+        f"{' + dflow' if x is not None else ''}; dead {n_dead}; max_abs_err "
+        + ", ".join(f"{k} {err[k]:.3e} (limit {limit[k]:.3e})" for k in err)
+        + f"; plain-zero dx entries nonzero here {int(odd.sum())} (max "
+        f"{worst:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"grid_sampler_2d_backward {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return dict(case=name, max_abs_err=max(err.values()),
+                tolerance=max(limit.values()), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                nbytes=nbytes, flops=flops)
+
+
+def phase_k1_backward(dev):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = []
+    for name, n, h, w, c, amp, dt in (
+            ("train feat f32", TRAIN_BATCH, 128, 128, 49, 6.0, torch.float32),
+            ("train up f32", TRAIN_BATCH, 256, 256, 48, 12.0, torch.float32),
+            ("serve feat bf16", N, H, W, 49, 6.0, torch.bfloat16)):
+        x = (torch.rand((n, h, w, c), generator=gen, device=dev) * 2 - 1)
+        flow = _poison(_smooth_flow(gen, n, h, w, amp, dev), gen)
+        g = torch.rand((n, h, w, c), generator=gen, device=dev) * 2 - 1
+        cases.append(k1_bwd_case(name, g.to(dt), flow.to(dt), tuple(x.shape),
+                                 x.to(dt), need_dead=True))
+        del x, flow, g
+    return cases
+
+
 # ---------------------------------------------------------------- K2
+
+
+def _k2_inputs(gen, n, l_ref, l_lr, d, dup, dtype, dev):
+    """Unit patch rows; the last `dup` ref rows repeat the first ones (ties
+    the kernel must resolve to the lower index) and the first `dup` LR rows
+    lean toward them, so the ties are hit."""
+    ref = torch.randn((n, l_ref, d), generator=gen, device=dev)
+    ref[:, -dup:] = ref[:, :dup]
+    lr = torch.randn((n, l_lr, d), generator=gen, device=dev)
+    lr[:, :dup] += 4 * ref[:, :dup]
+    ref = torch.nn.functional.normalize(ref, dim=2).to(dtype).contiguous()
+    lr = torch.nn.functional.normalize(lr, dim=2).to(dtype).contiguous()
+    return ref, lr
 
 
 def k2_case(name, ref, lr, dup=0, iters=5, plain_iters=2):
@@ -230,16 +384,26 @@ def k2_case(name, ref, lr, dup=0, iters=5, plain_iters=2):
     ms = cuda_ms(lambda: argmax_matmul(ref, lr), iters=iters)
     plain_ms = cuda_ms(lambda: argmax_matmul_plain(ref, lr),
                        iters=plain_iters, warmup=1)
+    # the library yardstick, two calls: the whole similarity by matmul, then
+    # its row max; only where that matrix fits beside the inputs
+    sim_bytes = n * l_lr * l_ref * ref.element_size()
+    library_ms = None
+    if sim_bytes <= K2_LIBRARY_MAX_BYTES:
+        library_ms = cuda_ms(lambda: torch.matmul(
+            lr, ref.transpose(1, 2)).max(dim=2), iters=iters)
     nbytes = (ref.numel() + lr.numel()) * ref.element_size() + n * l_lr * 8
     flops = 2.0 * n * l_lr * l_ref * d
     b_ms, b_by = bound_ms(nbytes, flops, ref.dtype)
+    lib = ("not run: the similarity would be "
+           f"{sim_bytes / 1e9:.1f} GB" if library_ms is None
+           else f"{library_ms:.3f} ms")
     log(f"K2 {name}: ref {tuple(ref.shape)} x lr {tuple(lr.shape)} "
         f"{ref.dtype}; max_abs_err {err:.3e} (limit 1e-4); indices "
         f"differing from plain {n_diff} (all within 1e-4 of the max; worst "
-        f"{gap:.3e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"{gap:.3e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul + "
+        f"max {lib}, bound {b_ms:.4f} ms ({b_by})")
     return dict(case=name, max_abs_err=err, tolerance=1e-4, ms=ms,
-                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=b_by, index_differs=n_diff, nbytes=nbytes,
                 flops=flops)
 
@@ -247,16 +411,87 @@ def k2_case(name, ref, lr, dup=0, iters=5, plain_iters=2):
 def phase_k2(dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     l_ref, l_lr, d, dup = K2_SHAPE
-    ref = torch.randn((1, l_ref, d), generator=gen, device=dev)
-    # the last `dup` ref rows repeat the first ones: ties the kernel must
-    # resolve to the lower index
-    ref[:, -dup:] = ref[:, :dup]
-    lr = torch.randn((1, l_lr, d), generator=gen, device=dev)
-    # bias some LR rows toward duplicated ref rows so the ties are hit
-    lr[:, :dup] += 4 * ref[:, :dup]
-    ref = torch.nn.functional.normalize(ref, dim=2).bfloat16().contiguous()
-    lr = torch.nn.functional.normalize(lr, dim=2).bfloat16().contiguous()
+    ref, lr = _k2_inputs(gen, 1, l_ref, l_lr, d, dup, torch.bfloat16, dev)
     return [k2_case("synthetic bf16", ref, lr, dup=dup)]
+
+
+def k2_bwd_case(name, ref, lr, index, g, dup=0):
+    """K2 backward kernel vs its plain backward on the card (the arguments
+    of ``argmax_matmul_backward``); returns a dict of its numbers. d_lr is
+    one f32 product rounded once in both, so within 1e-6 of its largest
+    magnitude; d_ref within 1e-5 of it in f32 and 2**-7 in bf16 (f32
+    atomics in another order, then one rounding). The last `dup` ref rows
+    never won, so they get exact zeros."""
+    from refvsr_tpu_torch.ops.kernels.argmax_matmul import (
+        argmax_matmul_backward, argmax_matmul_backward_plain)
+    n, l_ref, d = ref.shape
+    d_ref, d_lr = argmax_matmul_backward(ref, lr, index, g)
+    d_ref_p, d_lr_p = argmax_matmul_backward_plain(ref, lr, index, g)
+    torch.cuda.synchronize()
+    tol = {"d_lr": 1e-6,
+           "d_ref": 1e-5 if ref.dtype == torch.float32 else 2.0 ** -7}
+    err, limit = {}, {}
+    for label, got, want in (("d_lr", d_lr, d_lr_p),
+                             ("d_ref", d_ref, d_ref_p)):
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"K2-bwd {name}: {label} shape/dtype")
+        check(_finite(got), f"K2-bwd {name}: {label} is not finite")
+        err[label] = float((got.float() - want.float()).abs().max())
+        limit[label] = tol[label] * float(want.float().abs().max())
+        check(err[label] <= limit[label], f"K2-bwd {name}: max |kernel - "
+              f"plain| of {label} {err[label]} > {limit[label]}")
+    if dup:
+        check(bool((d_ref[:, -dup:] == 0).all()),
+              f"K2-bwd {name}: duplicated ref rows got a gradient")
+
+    ms = cuda_ms(lambda: argmax_matmul_backward(ref, lr, index, g))
+    plain_ms = cuda_ms(lambda: argmax_matmul_backward_plain(ref, lr, index,
+                                                            g), iters=3)
+    # the library yardstick, two calls: the picked ref rows' gather and the
+    # scatter-add of the LR rows into d_ref
+    rows = (index.long() + torch.arange(n, device=ref.device)[:, None]
+            * l_ref).reshape(-1)
+    ref_flat, lr_flat = ref.reshape(-1, d), lr.reshape(-1, d)
+    acc = torch.zeros_like(ref_flat)
+
+    def library():
+        ref_flat.index_select(0, rows)
+        acc.index_add_(0, rows, lr_flat)
+
+    library_ms = cuda_ms(library)
+    # bytes: the picked ref rows, lr, index and g in; d_ref and d_lr out
+    picked = int(torch.unique(rows).numel())
+    es = ref.element_size()
+    nbytes = (picked * d * es + _nbytes(lr, index, g, d_ref, d_lr))
+    flops = 3 * lr.numel()
+    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+    log(f"K2-bwd {name}: ref {tuple(ref.shape)}, lr {tuple(lr.shape)} "
+        f"{ref.dtype}; {picked} ref rows picked; max_abs_err "
+        + ", ".join(f"{k} {err[k]:.3e} (limit {limit[k]:.3e})" for k in err)
+        + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select + "
+        f"index_add_ (two calls) {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return dict(case=name, max_abs_err=max(err.values()),
+                tolerance=max(limit.values()), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                nbytes=nbytes, flops=flops)
+
+
+def phase_k2_backward(dev):
+    from refvsr_tpu_torch.ops.kernels.argmax_matmul import argmax_matmul
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = []
+    for name, (n, l_ref, l_lr, d, dup), dt in (
+            ("train f32", K2_TRAIN_SHAPE, torch.float32),
+            ("serve bf16", (1, *K2_SHAPE), torch.bfloat16)):
+        ref, lr = _k2_inputs(gen, n, l_ref, l_lr, d, dup, dt, dev)
+        _, index = argmax_matmul(ref, lr)
+        check(int((index >= l_ref - dup).sum()) == 0,
+              f"K2-bwd {name}: a tie went to the later duplicate")
+        g = torch.randn((n, l_lr), generator=gen, device=dev)
+        cases.append(k2_bwd_case(name, ref, lr, index, g, dup=dup))
+        del ref, lr, index, g
+    return cases
 
 
 # ---------------------------------------------------------------- nets
@@ -285,40 +520,195 @@ def phase_small_agreement(dev):
         f"CPU max_abs_diff {worst:.3e} (limit 1e-3)")
 
 
-def _finite(t):
-    return bool(torch.isfinite(t.float()).all())
+def synthetic_batch(cfg, seed):
+    """A seeded training batch with the HD-in geometry of the JAX package's
+    data/datasets.py: LR_UW p^2, LR_REF_W (2p)^2, HR_UW p^2, HR_REF_T
+    (4p)^2, each (b, frame_num + frame_itr_num - 1, side, side, 3)."""
+    rng = np.random.default_rng(seed)
+    n, p = cfg.batch_size, cfg.patch_size
+    t = cfg.frame_num + cfg.frame_itr_num - 1
+
+    def img(side):
+        return rng.random((n, t, side, side, 3), dtype=np.float32)
+    return {"LR_UW": img(p), "LR_REF_W": img(2 * p), "HR_UW": img(p),
+            "HR_REF_T": img(4 * p)}
+
+
+def window(arrays, i, t):
+    """Window i of a batch (as Trainer.iteration slices it): lrs, refs,
+    the centre HR frame and the ref frames seen so far."""
+    return (arrays["LR_UW"][:, i:i + t], arrays["LR_REF_W"][:, i:i + t],
+            arrays["HR_UW"][:, i + t // 2], arrays["HR_REF_T"][:, :i + t])
+
+
+KERNEL_FNS = ("warp_sample", "warp_sample_backward", "argmax_matmul",
+              "argmax_matmul_backward")
+
+
+def _kernel_fns():
+    from refvsr_tpu_torch.ops.kernels import argmax_matmul as k2
+    from refvsr_tpu_torch.ops.kernels import warp_sample as k1
+    return {"warp_sample": k1.warp_sample,
+            "warp_sample_backward": k1.warp_sample_backward,
+            "argmax_matmul": k2.argmax_matmul,
+            "argmax_matmul_backward": k2.argmax_matmul_backward}
+
+
+def reset_launches():
+    for fn in _kernel_fns().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in _kernel_fns().items()}
+
+
+def phase_small_training(dev):
+    """One training step of a tiny RefVSR_MFID_8K-wired trainer (2 blocks,
+    8 channels, T = 3, patch 16, batch 1, f32, TF32 off) on the card with
+    the kernels against the same on the CPU with the plain versions, from
+    the same seeded weights and window. Tolerances: L1_lf, total and PSNR
+    rtol 1e-4; the contextual (MFID) term rtol 5e-3, because it divides
+    each cosine distance by its row's smallest one: on the CPU it moves by
+    2e-4 to 8e-4 relative when the SR frame or its VGG features are
+    perturbed by 1e-7 to 1e-6 relative. Each gradient within 2e-3 of its
+    largest CPU magnitude plus 1e-6 (about 60 f32 layers summed in another
+    order, as the CPU tests allow against the JAX package; a 1e-6 relative
+    perturbation of the SR frame moves them by up to 5.4e-4 of it)."""
+    from refvsr_tpu_torch.losses import cx_options
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.models.refvsr import init_stream_state
+    from refvsr_tpu_torch.train.trainer import Trainer
+    cfg = get_config("RefVSR_MFID_8K", num_blocks=2, mid_channels=8,
+                     frame_num=3, frame_itr_num=1, patch_size=16,
+                     batch_size=1)
+    batch = synthetic_batch(cfg, seed=8)
+    res = {}
+    for d in ("cpu", dev):
+        tr = Trainer(cfg, device=d, seed=3)
+        state = init_stream_state(1, cfg.patch_size, cfg.patch_size,
+                                  cfg.mid_channels,
+                                  num_frames=cfg.frame_num, device=d)
+        win = [torch.from_numpy(np.ascontiguousarray(a)).to(d)
+               for a in window(batch, 0, cfg.frame_num)]
+        reset_launches()
+        errs, _, _, grads = tr.gradients(state, *win)
+        launches = read_launches()
+        names = [k for k, p in tr.net.named_parameters() if p.requires_grad]
+        res[d] = ({k: float(v.detach()) for k, v in errs.items()},
+                  {k: None if g is None else g.detach().cpu()
+                   for k, g in zip(names, grads)}, launches)
+    (errs_c, grads_c, _), (errs_g, grads_g, launches) = res["cpu"], res[dev]
+    check(all(v > 0 for v in launches.values()),
+          f"small training: a kernel was not launched on the card "
+          f"{launches}")
+    check(set(errs_c) == set(errs_g) and set(grads_c) == set(grads_g),
+          "small training: loss or parameter sets differ")
+    bad = []
+    for k, v in errs_c.items():
+        rtol = 5e-3 if cx_options(k) is not None else 1e-4
+        if abs(errs_g[k] - v) > rtol * abs(v):
+            bad.append(f"loss {k} card {errs_g[k]} vs CPU {v} (rtol {rtol})")
+    worst, worst_k = 0.0, None
+    for k, gc in grads_c.items():
+        gg = grads_g[k]
+        if (gc is None) != (gg is None):
+            bad.append(f"{k} has a gradient on one side only")
+            continue
+        if gc is None:
+            continue
+        err = float((gg - gc).abs().max())
+        rel = err / (2e-3 * float(gc.abs().max()) + 1e-6)
+        if rel > 1:
+            bad.append(f"gradient {k}: card vs CPU {err} at {rel:.2f} of "
+                       f"its limit")
+        if rel > worst:
+            worst, worst_k = rel, k
+    log(f"small training step (RefVSR_MFID_8K wiring, 2 blocks, 8 ch, T=3, "
+        f"patch 16, f32): losses "
+        + ", ".join(f"{k} {errs_g[k]:.6g}/{errs_c[k]:.6g}" for k in errs_c)
+        + f" (card/CPU); {len(grads_c)} gradients, worst at {worst:.3f} of "
+        f"its limit ({worst_k}); card launches {launches}")
+    check(not bad, "small training: " + "; ".join(bad))
 
 
 @contextlib.contextmanager
 def capturing(module, name, calls, new_shapes_only=None):
-    """Route `module.name` (a kernel wrapper as the path imports it) through
-    a spy that keeps a clone of each call's tensors in `calls`. Given a set
-    `new_shapes_only`, it keeps only the first call of each shape not yet in
-    the set, and adds that shape. The wrapper itself, and so its launch
-    count, is unchanged."""
+    """Route `module.name` (a kernel wrapper as its caller looks it up)
+    through a spy that keeps (args, kwargs), tensors detached and cloned,
+    of each call in `calls`. Given a set `new_shapes_only`, it keeps only
+    the first call of each argument shape not yet in the set, and adds that
+    shape. The wrapper runs unchanged, and its launch count stays its own:
+    a wrapper that counts through its module's name reaches the spy, which
+    passes ``launches`` on to it."""
     fn = getattr(module, name)
 
-    def spy(*args):
-        key = _shape_key(args)
-        if new_shapes_only is None or key not in new_shapes_only:
-            if new_shapes_only is not None:
-                new_shapes_only.add(key)
-            calls.append(tuple(a.clone() for a in args))
-        return fn(*args)
+    class Spy:
+        def __call__(self, *args, **kw):
+            key = _shape_key(args)
+            if new_shapes_only is None or key not in new_shapes_only:
+                if new_shapes_only is not None:
+                    new_shapes_only.add(key)
+                calls.append((tuple(_clone(a) for a in args),
+                              {k: _clone(v) for k, v in kw.items()}))
+            return fn(*args, **kw)
 
-    setattr(module, name, spy)
+        @property
+        def launches(self):
+            return fn.launches
+
+        @launches.setter
+        def launches(self, n):
+            fn.launches = n
+
+    setattr(module, name, Spy())
     try:
         yield
     finally:
         setattr(module, name, fn)
 
 
+def _clone(v):
+    return v.detach().clone() if torch.is_tensor(v) else v
+
+
 def _shape_key(args):
-    return tuple((tuple(a.shape), a.dtype) for a in args)
+    return tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else repr(a)
+                 for a in args)
 
 
 KERNEL_TAGS = {"warp_sample": "warp_sample_kernel",
-               "argmax_matmul": "argmax_matmul_kernel"}
+               "warp_sample_backward": "warp_sample_backward_kernel",
+               "argmax_matmul": "argmax_matmul_kernel",
+               "argmax_matmul_backward": "argmax_matmul_backward_kernel"}
+
+
+def device_profile(prof, names, what, wall_ms, card, top=0):
+    """Device ms and launches of the kernels `names` in a finished
+    torch.profiler trace, the device's busy time and idle share, and
+    optionally the `top` kernels by device time."""
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ev.self_device_time_total for ev in events) / 1e3
+    out = {}
+    for name in names:
+        mine = [ev for ev in events if KERNEL_TAGS[name] in ev.key]
+        ms = sum(ev.self_device_time_total for ev in mine) / 1e3
+        n = sum(ev.count for ev in mine)
+        check(ms > 0 and n > 0, f"{what}: no device time for {name}")
+        out[name] = dict(ms=ms, launches=n)
+    idle = max(0.0, 1 - busy / wall_ms)
+    log(f"profiled {what}: host {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+        f"idle share {idle:.3f}; "
+        + "; ".join(f"{k} {v['ms']:.4f} ms in {v['launches']} launches"
+                    for k, v in out.items()) + f"  [{card}]")
+    if top:
+        log(f"{'ms':>10} {'share':>6} {'calls':>6}  kernel ({what})")
+        for ev in sorted(events, key=lambda e: -e.self_device_time_total)[
+                :top]:
+            ms = ev.self_device_time_total / 1e3
+            log(f"{ms:10.3f} {ms / busy:6.3f} {ev.count:6d}  {ev.key[:100]}")
+    return out, dict(wall_ms=wall_ms, busy_ms=busy, idle_share=idle)
 
 
 def profiled_window(runner, lrs, refs, card):
@@ -331,21 +721,8 @@ def profiled_window(runner, lrs, refs, card):
         runner.process_device(lrs, refs, is_first=False)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [ev for ev in prof.key_averages()
-              if ev.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(ev.self_device_time_total for ev in events) / 1e3
-    out = {}
-    for name, tag in KERNEL_TAGS.items():
-        mine = [ev for ev in events if tag in ev.key]
-        ms = sum(ev.self_device_time_total for ev in mine) / 1e3
-        n = sum(ev.count for ev in mine)
-        check(ms > 0 and n > 0, f"profiled window: no device time for {tag}")
-        out[name] = dict(ms=ms, launches=n)
-    log(f"profiled forward_stream window: host {wall_ms:.1f} ms, device "
-        f"busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}; "
-        + "; ".join(f"{k} {v['ms']:.4f} ms in {v['launches']} launches"
-                    for k, v in out.items()) + f"  [{card}]")
-    return out
+    return device_profile(prof, ("warp_sample", "argmax_matmul"),
+                          "forward_stream window", wall_ms, card)[0]
 
 
 def phase_main_path(dev, card):
@@ -373,8 +750,7 @@ def phase_main_path(dev, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    warp_sample.launches = 0
-    argmax_matmul.launches = 0
+    reset_launches()
     windows = []
     out = None
     for wi in range(STREAM_WINDOWS + 1):
@@ -392,8 +768,10 @@ def phase_main_path(dev, card):
             f"K2 launches {k2}  [{card}]")
         want = (16, 1) if wi == 0 else (10, 1)
         check((k1, k2) == want, f"window {wi}: launches {(k1, k2)} != {want}")
-    launches = {"warp_sample": warp_sample.launches,
-                "argmax_matmul": argmax_matmul.launches}
+    launches = read_launches()
+    check(launches["warp_sample_backward"] == 0
+          and launches["argmax_matmul_backward"] == 0,
+          "streaming launched a backward kernel")
     peak = torch.cuda.max_memory_allocated()
 
     check(tuple(out.shape) == (N, 4 * H, 4 * W, 3),
@@ -428,7 +806,7 @@ def phase_main_path(dev, card):
                       stream_calls["argmax_matmul"]):
         runner.process_device(lrs[:, wi:wi + T], refs[:, wi:wi + T],
                               is_first=False)
-    seen = {k: {_shape_key(a) for a in v} for k, v in stream_calls.items()}
+    seen = {k: {_shape_key(a) for a, _ in v} for k, v in stream_calls.items()}
     with capturing(warp_mod, "warp_sample", first_calls["warp_sample"],
                    seen["warp_sample"]), \
             capturing(matching_mod, "argmax_matmul",
@@ -444,28 +822,241 @@ def phase_main_path(dev, card):
     return launches, windows, peak, in_path, stream_calls, first_calls
 
 
+@contextlib.contextmanager
+def cudnn_tf32(on):
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def phase_training(dev, card):
+    """One Trainer.iteration at full width, then one more step profiled
+    with every kernel's inputs captured. Returns (launches, summary,
+    in-step kernel times, captured calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.models import matching as matching_mod
+    from refvsr_tpu_torch.ops import warp as warp_mod
+    from refvsr_tpu_torch.ops.kernels import argmax_matmul as k2_mod
+    from refvsr_tpu_torch.ops.kernels import warp_sample as k1_mod
+    from refvsr_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("RefVSR_MFID_8K", batch_size=TRAIN_BATCH)
+    check((cfg.num_blocks, cfg.mid_channels, cfg.flag_HD_in,
+           cfg.matching_ksize, cfg.is_use_T, cfg.is_amp, cfg.loss,
+           cfg.CX_vgg_layer, cfg.patch_size, cfg.frame_num,
+           cfg.frame_itr_num, cfg.gc, cfg.LRS)
+          == (30, 48, True, 8, True, False, "1*L1_lf+0.1*MFID_ref",
+              "relu4_4", 128, 7, 9, 1.0, "CA"), f"training config {cfg}")
+    batch = synthetic_batch(cfg, seed=9)
+    tr = Trainer(cfg, device=dev, seed=0)
+    trained0 = [p.detach().clone() for p in tr.params]
+    frozen0 = {f"FlowNet.{k}": v.clone()
+               for k, v in tr.net.FlowNet.state_dict().items()}
+    frozen0.update({f"loss.{k}": v.clone()
+                    for k, v in tr.loss_mod.state_dict().items()})
+
+    step_ms = []
+    train_step = tr.train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tr.train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    means, state = tr.iteration(batch)
+    torch.cuda.synchronize()
+    iter_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del tr.train_step
+
+    check(len(step_ms) == cfg.frame_itr_num == len(tr.window_errs),
+          f"iteration ran {len(step_ms)} steps")
+    for i, errs in enumerate(tr.window_errs):
+        check(all(_finite(v) for v in errs.values()),
+              f"training window {i}: non-finite loss {errs}")
+    check(all(v > 0 for v in launches.values()),
+          f"training: a kernel was not launched {launches}")
+    unchanged = [i for i, (p, p0) in enumerate(zip(tr.params, trained0))
+                 if torch.equal(p, p0)]
+    check(not unchanged, f"training: {len(unchanged)} of {len(trained0)} "
+          f"trained tensors did not change")
+    now = {f"FlowNet.{k}": v for k, v in tr.net.FlowNet.state_dict().items()}
+    now.update({f"loss.{k}": v for k, v in tr.loss_mod.state_dict().items()})
+    moved = [k for k, v in frozen0.items() if not torch.equal(now[k], v)]
+    check(not moved, f"training: frozen tensors changed: {moved[:5]}")
+    del trained0, frozen0, now
+    steady = step_ms[1:]
+    summary = dict(card=card, batch=TRAIN_BATCH, steps=len(step_ms),
+                   step_ms=step_ms, ms_per_step=sum(steady) / len(steady),
+                   iteration_ms=iter_ms, peak_bytes=peak,
+                   mean_errors=means, next_lr=tr.current_lr())
+    log("training windows: " + "; ".join(
+        f"{i}: {ms:.1f} ms, total {float(e['total']):.5f}, PSNR "
+        f"{float(e['PSNR']):.3f}" for i, (ms, e) in
+        enumerate(zip(step_ms, tr.window_errs))))
+    log(f"training path: RefVSR_MFID_8K f32, batch {TRAIN_BATCH}, patch "
+        f"{cfg.patch_size}, {len(step_ms)} steps in {iter_ms:.1f} ms; "
+        f"{summary['ms_per_step']:.1f} ms per optimizer step (mean of steps "
+        f"2-{len(step_ms)}); peak allocated {peak / 2**30:.2f} GiB; mean "
+        f"errors {means}; launches {launches}  [{card}]")
+
+    # one more step, traced, with every kernel's inputs captured (forward
+    # kernels once per shape, backward kernels at every call)
+    arrays = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    calls = {name: [] for name in KERNEL_FNS}
+    seen = {"warp_sample": set(), "argmax_matmul": set()}
+    with capturing(warp_mod, "warp_sample", calls["warp_sample"],
+                   seen["warp_sample"]), \
+            capturing(matching_mod, "argmax_matmul", calls["argmax_matmul"],
+                      seen["argmax_matmul"]), \
+            capturing(k1_mod, "warp_sample_backward",
+                      calls["warp_sample_backward"]), \
+            capturing(k2_mod, "argmax_matmul_backward",
+                      calls["argmax_matmul_backward"]), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(state, *window(arrays, cfg.frame_itr_num - 1,
+                                     cfg.frame_num))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    in_step, summary["profiled_step"] = device_profile(
+        prof, KERNEL_FNS, "training step", wall_ms, card, top=20)
+    for name in ("warp_sample_backward", "argmax_matmul_backward"):
+        check(in_step[name]["launches"] == len(calls[name]),
+              f"{name}: {in_step[name]['launches']} launches in the traced "
+              f"step, {len(calls[name])} captured")
+    del tr, arrays, state, prof
+    torch.cuda.empty_cache()
+    return launches, summary, in_step, calls
+
+
 def _shape(t):
     return "x".join(str(v) for v in t.shape)
 
 
-def path_cases(stream_calls, first_calls):
-    """Each kernel against its plain version on the inputs the main path
-    gave it: every call of a streamed window, and the first window's calls
-    at shapes the streamed window lacks."""
-    res = {}
-    for name, case_fn, tol in (("warp_sample", k1_case, 2.0 ** -6),
-                               ("argmax_matmul", k2_case, None)):
-        def run(label, args):
-            if tol is None:
-                return case_fn(label, *args, iters=2, plain_iters=1)
-            return case_fn(label, *args, tol)
-        window = [run(f"forward_stream call {i}: {_shape(a[0])}, "
-                      f"{_shape(a[1])}", a)
-                  for i, a in enumerate(stream_calls[name])]
-        first = [run(f"forward_first: {_shape(a[0])}, {_shape(a[1])}", a)
-                 for a in first_calls[name]]
-        res[name] = (window, first)
-    return res
+def path_cases(stream_calls, first_calls, train_calls):
+    """Each kernel against its plain version on the inputs the main paths
+    gave it: every call of a streamed window, the first window's calls at
+    shapes the streamed window lacks, and the training step's calls (the
+    forward kernels once per shape, the backward kernels at every call).
+    Returns {kernel: (the calls its in-path numbers sum over, the rest)}."""
+    def k1(label, args, kw):
+        return k1_case(label, *args, 2.0 ** -6 if args[0].dtype ==
+                       torch.bfloat16 else 1e-5)
+
+    def k2(label, args, kw):
+        return k2_case(label, *args, iters=2, plain_iters=1)
+
+    def k1_bwd(label, args, kw):
+        return k1_bwd_case(label, *args, **kw)
+
+    def k2_bwd(label, args, kw):
+        return k2_bwd_case(label, *args)
+
+    def run(fn, where, calls):
+        return [fn(f"{where} call {i}: {_shape(a[0])}, {_shape(a[1])}", a, kw)
+                for i, (a, kw) in enumerate(calls)]
+
+    return {
+        "warp_sample": (run(k1, "forward_stream", stream_calls["warp_sample"]),
+                        run(k1, "forward_first", first_calls["warp_sample"])
+                        + run(k1, "train step", train_calls["warp_sample"])),
+        "argmax_matmul": (
+            run(k2, "forward_stream", stream_calls["argmax_matmul"]),
+            run(k2, "forward_first", first_calls["argmax_matmul"])
+            + run(k2, "train step", train_calls["argmax_matmul"])),
+        "warp_sample_backward": (
+            run(k1_bwd, "train step", train_calls["warp_sample_backward"]),
+            []),
+        "argmax_matmul_backward": (
+            run(k2_bwd, "train step", train_calls["argmax_matmul_backward"]),
+            []),
+    }
+
+
+KERNEL_META = {
+    "warp_sample": dict(
+        id="K1", source="refvsr_tpu_torch/csrc/warp_sample.cu",
+        replaces="refvsr_tpu/ops/pallas/warp_select.py:293",
+        tolerance="2**-6 * max|x| (bf16), 1e-5 * max|x| (f32)",
+        ms_is="device time of its launches in one forward_stream window "
+              "(torch.profiler); plain_ms, library_ms (F.grid_sample) and "
+              "bound_ms are for the inputs the path gave it in the next "
+              "forward_stream window, summed over its launches"),
+    "warp_sample_backward": dict(
+        id="K1-bwd", source="refvsr_tpu_torch/csrc/warp_sample.cu",
+        replaces="refvsr_tpu/ops/pallas/warp_select.py:363",
+        tolerance="1e-5 (f32), 2**-7 (bf16) of the f32 plain backward's "
+                  "max |dx|, |dflow|",
+        ms_is="device time of its launches in one full-width training step "
+              "(torch.profiler); plain_ms, library_ms "
+              "(aten.grid_sampler_2d_backward) and bound_ms are for the "
+              "inputs that step gave it, summed over its launches"),
+    "argmax_matmul": dict(
+        id="K2", source="refvsr_tpu_torch/csrc/argmax_matmul.cu",
+        replaces="refvsr_tpu/ops/pallas/matching_kernel.py:67",
+        tolerance="conf 1e-4; picks within 1e-4 of the max",
+        ms_is="device time of its launch in one forward_stream window "
+              "(torch.profiler); plain_ms, library_ms (matmul + max, two "
+              "calls) and bound_ms are for the inputs the path gave it in "
+              "the next forward_stream window"),
+    "argmax_matmul_backward": dict(
+        id="K2-bwd", source="refvsr_tpu_torch/csrc/argmax_matmul.cu",
+        replaces="refvsr_tpu/ops/pallas/matching_kernel.py:118",
+        tolerance="d_lr 1e-6, d_ref 1e-5 (f32) or 2**-7 (bf16) of the plain "
+                  "backward's max",
+        ms_is="device time of its launch in one full-width training step "
+              "(torch.profiler); plain_ms, library_ms (index_select + "
+              "index_add_, two calls) and bound_ms are for the inputs that "
+              "step gave it"),
+}
+
+
+def kernels_line(synthetic, on_path, in_path, in_step, launches):
+    kernels = []
+    for name, m in KERNEL_META.items():
+        counted, rest = on_path[name]
+        forward = name in ("warp_sample", "argmax_matmul")
+        ms = (in_path if forward else in_step)[name]
+        check(ms["launches"] == len(counted) or not forward,
+              f"{name}: {ms['launches']} launches in the profiled window, "
+              f"{len(counted)} in the captured one")
+        dtype = torch.bfloat16 if forward else torch.float32
+        b_ms, b_by = bound_ms(sum(c["nbytes"] for c in counted),
+                              sum(c["flops"] for c in counted), dtype)
+        lib = [c["library_ms"] for c in counted]
+        cases = synthetic[name] + counted + rest
+        by_path = {p: launches[p][name] for p in launches}
+        kernels.append(dict(
+            name=name, id=m["id"], route="cuda", source=m["source"],
+            replaces=m["replaces"], launches=sum(by_path.values()),
+            launches_by_path=by_path,
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            tolerance=m["tolerance"], ms=ms["ms"], ms_is=m["ms_is"],
+            ms_train_step=in_step[name]["ms"],
+            isolated_ms=sum(c["ms"] for c in counted),
+            plain_ms=sum(c["plain_ms"] for c in counted),
+            library_ms=None if None in lib else sum(lib),
+            bound_ms=b_ms, bound_by=b_by,
+            cases=[{k: v for k, v in c.items() if k not in ("nbytes",
+                                                            "flops")}
+                   for c in cases]))
+    return kernels
 
 
 def main():
@@ -490,57 +1081,22 @@ def main():
     dev = "cuda"
     synthetic = {"warp_sample": phase_k1(dev), "argmax_matmul": phase_k2(dev)}
     torch.cuda.empty_cache()
-    phase_small_agreement(dev)
+    synthetic["warp_sample_backward"] = phase_k1_backward(dev)
+    synthetic["argmax_matmul_backward"] = phase_k2_backward(dev)
     torch.cuda.empty_cache()
-    launches, windows, peak, in_path, stream_calls, first_calls = \
+    phase_small_agreement(dev)
+    phase_small_training(dev)
+    torch.cuda.empty_cache()
+    launches = {}
+    launches["stream"], windows, peak, in_path, stream_calls, first_calls = \
         phase_main_path(dev, card)
-    on_path = path_cases(stream_calls, first_calls)
-
-    meta = {
-        "warp_sample": dict(
-            source="refvsr_tpu_torch/csrc/warp_sample.cu",
-            replaces="refvsr_tpu/ops/pallas/warp_select.py:293",
-            tolerance="2**-6 * max|x| (bf16), 1e-5 * max|x| (f32)",
-            launches_are="main-path total: 16 in forward_first, 10 in each "
-                         "of 3 forward_stream windows"),
-        "argmax_matmul": dict(
-            source="refvsr_tpu_torch/csrc/argmax_matmul.cu",
-            replaces="refvsr_tpu/ops/pallas/matching_kernel.py:67",
-            tolerance="conf 1e-4; picks within 1e-4 of the max",
-            launches_are="main-path total: 1 (batch 7) in forward_first, "
-                         "1 (batch 1) in each of 3 forward_stream windows"),
-    }
-    kernels = []
-    for name, m in meta.items():
-        window, first = on_path[name]
-        check(in_path[name]["launches"] == len(window),
-              f"{name}: {in_path[name]['launches']} launches in the profiled "
-              f"window, {len(window)} in the captured one")
-        dtype = stream_calls[name][0][0].dtype
-        b_ms, b_by = bound_ms(sum(c["nbytes"] for c in window),
-                              sum(c["flops"] for c in window), dtype)
-        lib = [c["library_ms"] for c in window]
-        cases = synthetic[name] + window + first
-        kernels.append(dict(
-            name=name, route="cuda", source=m["source"],
-            replaces=m["replaces"], launches=launches[name],
-            launches_are=m["launches_are"],
-            max_abs_err=max(c["max_abs_err"] for c in cases),
-            tolerance=m["tolerance"],
-            ms=in_path[name]["ms"],
-            ms_is="device time of its launches in one forward_stream window "
-                  "(torch.profiler); isolated_ms, plain_ms, library_ms and "
-                  "bound_ms are for the inputs the path gave it in the next "
-                  "forward_stream window, summed over its launches",
-            isolated_ms=sum(c["ms"] for c in window),
-            plain_ms=sum(c["plain_ms"] for c in window),
-            library_ms=None if None in lib else sum(lib),
-            bound_ms=b_ms, bound_by=b_by,
-            cases=[{k: v for k, v in c.items() if k not in ("nbytes",
-                                                            "flops")}
-                   for c in cases]))
+    with cudnn_tf32(True):
+        launches["train"], train, in_step, train_calls = phase_training(
+            dev, card)
+    on_path = path_cases(stream_calls, first_calls, train_calls)
+    kernels = kernels_line(synthetic, on_path, in_path, in_step, launches)
     log(json.dumps(dict(main_path=dict(card=card, windows=windows,
-                                       peak_bytes=peak))))
+                                       peak_bytes=peak), training=train)))
     log(json.dumps(dict(kernels=kernels)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,17 @@
 package ``refvsr_tpu`` that stays the reference.
 
 Layout mirrors ``refvsr_tpu``: ``configs``, ``ops`` (with ``ops/kernels``
-holding the two hand-written CUDA kernels and their plain PyTorch
-versions), ``models``, ``utils`` and ``eval``. Public op and model
-functions take and return NHWC tensors, like the JAX package.
+holding the two hand-written CUDA kernels, forward and backward, and their
+plain PyTorch versions), ``models``, ``losses``, ``train``, ``utils`` and
+``eval``. Public op and model functions take and return NHWC tensors, like
+the JAX package.
 
 Device: entry points (``eval.stream.StreamRunner``,
-``models.refvsr.build_refvsr``) run on ``"cuda"`` unless the caller passes
-``device="cpu"``; asking for ``"cuda"`` without a card raises. A kernel
-wrapper runs its plain version only for CPU tensors; for CUDA tensors it
-launches its kernel or raises.
+``models.refvsr.build_refvsr``, ``train.trainer.Trainer``) run on
+``"cuda"`` unless the caller passes ``device="cpu"``; asking for ``"cuda"``
+without a card raises. A kernel wrapper runs its plain version only for
+CPU tensors; for CUDA tensors it launches its kernel or raises, and so does
+its backward pass.
 
 Numerics the port relies on:
 

@@ -1,8 +1,8 @@
-"""Model configurations of the streaming slice.
+"""Model and training configurations of the port.
 
-Counterpart of ``refvsr_tpu/configs/__init__.py``: the same variant names and
-the same scale rule (``_apply_scale_rules``), holding only the fields the
-streaming path reads."""
+Counterpart of ``refvsr_tpu/configs/__init__.py``: the same variant names,
+the same defaults and the same scale rule (``_apply_scale_rules``), holding
+the fields the streaming path, the loss and the trainer read."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Optional
 
 @dataclass
 class Config:
+    # model
     scale: int = 4
     flag_HD_in: bool = False
     matching_ksize: int = 2
@@ -20,6 +21,23 @@ class Config:
     mid_channels: int = 48
     frame_num: int = 7
     reset_branch: Optional[int] = 9
+    # training (refvsr_tpu/configs/__init__.py:54,68-87)
+    manual_seed: int = 1234
+    batch_size: int = 8
+    patch_size: int = 64
+    lr_init: float = 2e-4
+    lr_min: float = 1e-6
+    gc: float = 1.0               # gradient clipping (global norm)
+    LRS: str = "CA"               # CA | LD
+    beta1: float = 0.9
+    total_itr: int = 300000
+    decay_period: tuple = (400000,)
+    decay_rate: float = 0.25
+    frame_itr_num: int = 9
+    loss: str = "1*L1_lf+0.05*MFID_ref_X_mu+0.01*FID_hr"
+    CX_vgg_layer: str = "relu3_4"
+    is_amp: bool = False
+    is_use_T: bool = False
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -32,10 +50,13 @@ def _apply_scale_rules(c: Config) -> Config:
     return c.replace(matching_ksize=ksize)
 
 
-# the streaming-relevant fields of refvsr_tpu/configs/__init__.py:_VARIANTS
+# the ported fields of refvsr_tpu/configs/__init__.py:_VARIANTS
 _VARIANTS = {
     "RefVSR_MFID": dict(),
-    "RefVSR_MFID_8K": dict(flag_HD_in=True, reset_branch=None),
+    "RefVSR_MFID_8K": dict(patch_size=128, loss="1*L1_lf+0.1*MFID_ref",
+                           CX_vgg_layer="relu4_4", is_use_T=True,
+                           flag_HD_in=True, reset_branch=None,
+                           total_itr=50000),
 }
 
 

@@ -1,4 +1,5 @@
-// K2: streaming max/argmax of patch similarities, for Hopper (sm_90a).
+// K2: streaming max/argmax of patch similarities, for Hopper (sm_90a), and
+// its backward pass.
 //
 // For every LR patch row l of one batch item it returns
 //   conf[l]  = max_r <ref[r], lr[l]>         (f32)
@@ -28,9 +29,18 @@
 //     and update the row's running (max, argmax) held in registers with a
 //     strict '>' -- so ties resolve to the lowest index, as torch.max and the
 //     TPU kernel do.
-// D must be a multiple of 16 (the wrapper zero-pads otherwise; D = 144 needs
-// none). A simple kernel that is right: wgmma, TMA and a pipelined ref-tile
-// ring are later work.
+// D must be a multiple of 16 (the wrapper raises otherwise; D = 144 is the
+// path's width). A simple kernel that is right: wgmma, TMA and a pipelined
+// ref-tile ring are later work.
+//
+// Backward (replaces the custom VJP _pallas_argmax_bwd of the same file):
+// conf = <ref[index[l]], lr[l]>, so the cotangent g of conf reaches only the
+// picked ref row. One thread per (b, l, j) element, neighbouring threads on
+// neighbouring j: d_lr[b,l,j] = g[b,l] * ref[b, index[b,l], j] (f32, rounded
+// once to the input type), and g[b,l] * lr[b,l,j] is added with an f32
+// atomicAdd into d_ref[b, index[b,l], j] (an f32 buffer the caller zeroes
+// and casts): many LR rows may pick the same ref row. Bound by bytes (three
+// operations per element); the atomics' order is the only nondeterminism.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -42,6 +52,18 @@
 namespace {
 
 using namespace nvcuda;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 constexpr int TL = 64;           // LR rows per block
 constexpr int TR = 64;           // ref rows per tile
@@ -186,6 +208,41 @@ int launch(const void* ref, const void* lr, void* conf, void* index, int b,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+__global__ void __launch_bounds__(256) argmax_matmul_backward_kernel(
+    const T* __restrict__ ref, const T* __restrict__ lr,
+    const int* __restrict__ index, const float* __restrict__ g,
+    float* __restrict__ d_ref, T* __restrict__ d_lr, int l_ref, int l_lr,
+    int d, long long total) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += stride) {
+    const long long row = e / d;             // b * l_lr + l
+    const int j = (int)(e - row * d);
+    const long long b = row / l_lr;
+    const long long src = (b * l_ref + index[row]) * d + j;
+    const float gv = g[row];
+    d_lr[e] = from_f32<T>(gv * to_f32(ref[src]));
+    atomicAdd(d_ref + src, gv * to_f32(lr[e]));
+  }
+}
+
+template <typename T>
+int launch_backward(const void* ref, const void* lr, const void* index,
+                    const void* g, void* d_ref, void* d_lr, int b, int l_ref,
+                    int l_lr, int d, cudaStream_t stream) {
+  if (b <= 0 || l_lr <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)b * l_lr * d;
+  const long long want = (total + 255) / 256;
+  const unsigned blocks = (unsigned)(want < (1LL << 20) ? want : (1LL << 20));
+  argmax_matmul_backward_kernel<T><<<blocks, 256, 0, stream>>>(
+      static_cast<const T*>(ref), static_cast<const T*>(lr),
+      static_cast<const int*>(index), static_cast<const float*>(g),
+      static_cast<float*>(d_ref), static_cast<T*>(d_lr), l_ref, l_lr, d,
+      total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. ref (b, l_ref, d), lr (b, l_lr, d)
@@ -200,5 +257,25 @@ extern "C" int argmax_matmul_launch(const void* ref, const void* lr,
     return launch<float>(ref, lr, conf, index, b, l_ref, l_lr, d, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(ref, lr, conf, index, b, l_ref, l_lr, d, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward of argmax_matmul_launch. ref (b, l_ref, d), lr (b, l_lr, d) and
+// d_lr (b, l_lr, d) share one dtype (codes as above); index (b, l_lr) int32
+// and g (b, l_lr) f32 are the forward's index and conf's gradient; d_ref is
+// an f32 (b, l_ref, d) buffer that the caller zeroes. Returns a cudaError_t
+// value (0 = success).
+extern "C" int argmax_matmul_backward_launch(const void* ref, const void* lr,
+                                             const void* index, const void* g,
+                                             void* d_ref, void* d_lr, int b,
+                                             int l_ref, int l_lr, int d,
+                                             int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_backward<float>(ref, lr, index, g, d_ref, d_lr, b, l_ref,
+                                  l_lr, d, s);
+  if (dtype == 1)
+    return launch_backward<__nv_bfloat16>(ref, lr, index, g, d_ref, d_lr, b,
+                                          l_ref, l_lr, d, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,14 @@
-"""RefVSR core network for streaming inference (NHWC); counterpart of
-``refvsr_tpu/models/refvsr.py``.
+"""RefVSR core network for streaming inference and training (NHWC);
+counterpart of ``refvsr_tpu/models/refvsr.py``.
 
 The JAX package's ``nn.scan`` loops (SPyNet pairs, propagation steps, the
 aligned-feature cache fill) are Python loops here, and its TPU-only
 formulations (row-tiled tails, pre-shuffle convs) give way to the direct
 math (``_tail``). Two entry points serve a stream: ``forward_first`` once
 per clip (or after a branch reset) and ``forward_stream`` once per window.
-``forward_train`` and the pipelined lanes are not ported yet.
+``forward_train`` is one training window: both branches in full, the
+aligned features recomputed inside every propagation step, SPyNet (frozen)
+under ``torch.no_grad()``. The pipelined lanes are not ported yet.
 
 Reference quirk kept: the intra-window forward branch warps the already
 warped low-res ``feat_prop`` onto the 2x grid for ``feat_prop_up``
@@ -251,29 +253,34 @@ class RefVSRNet(nn.Module):
     # ---------------- branches ----------------
 
     def _backward_branch(self, lrs, backward_flows, confs, frame_offset,
-                         aligneds, aligneds_up, aligned_offset=None,
-                         aligned_base: int = 0):
-        """Backward branch over frames t-1 .. t//2 (RefVSR.py:210-238) on the
-        cached aligned features. confs are indexed from `frame_offset`; the
-        aligned caches from `aligned_offset` (default frame_offset), as a
-        ring with logical entry i at slot (aligned_base + i) % TT."""
+                         aligneds=None, aligneds_up=None, aligned_offset=None,
+                         aligned_base: int = 0, refs=None, indices=None):
+        """Backward branch over frames t-1 .. t//2 (RefVSR.py:210-238).
+        confs (and indices) are indexed from `frame_offset`. Given the
+        aligned caches, each step reads them from `aligned_offset` (default
+        frame_offset), as a ring with logical entry i at slot
+        (aligned_base + i) % TT; otherwise each step recomputes its aligned
+        features from refs (absolute frame index) and indices."""
         n, t, h, w = lrs.shape[:4]
         center = t // 2
         aoff = frame_offset if aligned_offset is None else aligned_offset
-        tt = aligneds.shape[1]
         dt = lrs.dtype
         carry = (lrs.new_zeros((n, h, w, self.mid_channels)),
                  lrs.new_zeros((n, 2 * h, 2 * w, self.mid_channels)),
                  lrs.new_zeros((n, h, w, 1)))
         zero_flow = torch.zeros((n, h, w, 2), dtype=dt, device=lrs.device)
         for i in range(t - 1, center - 1, -1):
-            slot = (aligned_base + i - aoff) % tt
             # frame t-1 warps the all-zero init by a dummy zero flow; frame
             # i < t-1 warps by backward_flows[:, i] (RefVSR.py:217)
             x = {"lr": lrs[:, i], "conf": confs[:, i - frame_offset],
-                 "flow": zero_flow if i == t - 1 else backward_flows[:, i],
-                 "aligned": aligneds[:, slot],
-                 "aligned_up": aligneds_up[:, slot]}
+                 "flow": zero_flow if i == t - 1 else backward_flows[:, i]}
+            if aligneds is None:
+                x["ref"] = refs[:, i]
+                x["index"] = indices[:, i - frame_offset]
+            else:
+                slot = (aligned_base + i - aoff) % aligneds.shape[1]
+                x["aligned"] = aligneds[:, slot]
+                x["aligned_up"] = aligneds_up[:, slot]
             carry = self._prop_step("backward", False, carry, x)
         return carry
 
@@ -292,16 +299,18 @@ class RefVSRNet(nn.Module):
 
     def _forward_branch_full(self, state, lrs, refs, forward_flows, confs,
                              indices):
-        """Forward branch over frames 0..t//2 (first window)."""
+        """Forward branch over frames 0..t//2 (first or training window).
+        Returns (carry at the centre, carry after step 0)."""
         center = lrs.shape[1] // 2
-        carry = self._forward_step0(state, lrs[:, 0], confs[:, 0],
-                                    ref=refs[:, 0], index=indices[:, 0])
+        carry0 = carry = self._forward_step0(state, lrs[:, 0], confs[:, 0],
+                                             ref=refs[:, 0],
+                                             index=indices[:, 0])
         for i in range(1, center + 1):
             # frame i warps by forward_flows[:, i-1] (RefVSR.py:252)
             x = {"lr": lrs[:, i], "ref": refs[:, i], "conf": confs[:, i],
                  "index": indices[:, i], "flow": forward_flows[:, i - 1]}
             carry = self._prop_step("forward", True, carry, x)
-        return carry
+        return carry, carry0
 
     def _finalize(self, lr_center, bw_carry, fw_carry):
         base = resize(lr_center, scale_factor=self.scale,
@@ -310,6 +319,29 @@ class RefVSRNet(nn.Module):
                                fw_carry[2], base)
 
     # ---------------- entry points ----------------
+
+    def forward_train(self, lrs, refs, state: StreamState):
+        """Training window (RefVSR.py:279-283 with is_train=True): both
+        branches in full on the uncached path, SPyNet flows without
+        gradients. lrs (N, T, h, w, 3), refs (N, T, hr, wr, 3), `state` the
+        carry from the previous window. Returns (out (N, s*h, s*w, 3),
+        unclamped, and the new state, taken after forward step 0 and
+        detached)."""
+        t = lrs.shape[1]
+        with torch.no_grad():
+            fwd_flows, bwd_flows = self.compute_flows(lrs)
+        confs, indices = self.compute_matching(lrs, refs)
+        bw_carry = self._backward_branch(lrs, bwd_flows, confs, 0, refs=refs,
+                                         indices=indices)
+        fw_carry, fw_carry0 = self._forward_branch_full(
+            state, lrs, refs, fwd_flows, confs, indices)
+        out = self._finalize(lrs[:, t // 2], bw_carry, fw_carry)
+        new_state = StreamState(
+            feat_prop=fw_carry0[0].detach(),
+            feat_prop_up=fw_carry0[1].detach(),
+            conf_prop=fw_carry0[2].detach(), flow=fwd_flows[:, 0],
+            flows_fwd=fwd_flows, flows_bwd=bwd_flows)
+        return out, new_state
 
     def forward_first(self, lrs, refs):
         """First window of a clip: full branches, state saved at the center
@@ -325,8 +357,8 @@ class RefVSRNet(nn.Module):
             lrs[:, center:], refs[:, center:], indices[:, center:])
         bw_carry = self._backward_branch(lrs, bwd_flows, confs, 0, aligneds,
                                          aligneds_up, aligned_offset=center)
-        fw_carry = self._forward_branch_full(state, lrs, refs, fwd_flows,
-                                             confs, indices)
+        fw_carry, _ = self._forward_branch_full(state, lrs, refs, fwd_flows,
+                                                confs, indices)
         out = self._finalize(lrs[:, center], bw_carry, fw_carry).clamp(0, 1)
         new_state = StreamState(
             feat_prop=fw_carry[0], feat_prop_up=fw_carry[1],

@@ -12,6 +12,15 @@ go to the lowest ref index, as ``torch.max`` and the TPU kernel resolve them.
 The plain version is a transcription of ``tiled_argmax_matmul``
 (``refvsr_tpu/models/matching.py:71-111``): f32 products over ref tiles with
 a running (max, argmax) and a strict '>' across tiles.
+
+Gradients follow the custom VJP ``_pallas_argmax_bwd``
+(``matching_kernel.py:118-126``): conf is the dot product with the picked
+ref row only, so ``d lr_p = g * ref_p[idx]`` and ``d ref_p`` is the
+scatter-add of ``g * lr_p`` at ``idx``, both in f32 and cast to the input
+dtype; the int32 index has no gradient. With gradients on and either input
+requiring grad, ``argmax_matmul`` is recorded for autograd
+(``_ArgmaxMatmul``); its backward is the plain version (a gather and
+``index_add_``) for CPU tensors and a CUDA kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -49,27 +58,29 @@ def argmax_matmul_plain(ref_p: torch.Tensor, lr_p: torch.Tensor,
     return best, best_i
 
 
-def argmax_matmul(ref_p: torch.Tensor, lr_p: torch.Tensor):
-    """conf (N, L_lr) f32 and index (N, L_lr) int32 of
-    max_r <ref_p[:, r], lr_p[:, l]>.
+def argmax_matmul_backward_plain(ref_p: torch.Tensor, lr_p: torch.Tensor,
+                                index: torch.Tensor, g: torch.Tensor):
+    """Plain backward: (d ref_p, d lr_p) given conf's gradient g (N, L_lr),
+    a transcription of ``_pallas_argmax_bwd``."""
+    n, l_ref, d = ref_p.shape
+    g32 = g.float()[..., None]
+    idx = index.long()
+    bidx = torch.arange(n, device=ref_p.device)[:, None]
+    d_lr = (g32 * ref_p[bidx, idx].float()).to(lr_p.dtype)
+    rows = (idx + bidx * l_ref).reshape(-1)
+    d_ref = torch.zeros((n * l_ref, d), dtype=torch.float32,
+                        device=ref_p.device)
+    d_ref.index_add_(0, rows, (g32 * lr_p.float()).reshape(-1, d))
+    return d_ref.reshape(ref_p.shape).to(ref_p.dtype), d_lr
 
-    CPU tensors run the plain version. CUDA tensors run the kernel (bf16 or
-    f32, without gradients); anything else raises.
-    ``argmax_matmul.launches`` counts kernel launches."""
-    if ref_p.dim() != 3 or lr_p.dim() != 3 or ref_p.shape[0] != lr_p.shape[0] \
-            or ref_p.shape[2] != lr_p.shape[2]:
-        raise ValueError(f"want ref_p (N,L_ref,D) and lr_p (N,L_lr,D); got "
-                         f"{tuple(ref_p.shape)} and {tuple(lr_p.shape)}")
-    if ref_p.device != lr_p.device or ref_p.dtype != lr_p.dtype:
-        raise ValueError("ref_p and lr_p differ in device or dtype")
+
+def _forward(ref_p, lr_p):
     if ref_p.device.type == "cpu":
         return argmax_matmul_plain(ref_p, lr_p)
     if ref_p.device.type != "cuda":
         raise ValueError(f"unsupported device {ref_p.device}")
     if ref_p.dtype not in _DTYPES:
         raise TypeError(f"argmax_matmul takes f32/bf16, got {ref_p.dtype}")
-    if torch.is_grad_enabled() and (ref_p.requires_grad or lr_p.requires_grad):
-        raise NotImplementedError("argmax_matmul has no backward kernel yet")
     n, l_ref, d = ref_p.shape
     l_lr = lr_p.shape[1]
     if l_ref == 0:
@@ -89,16 +100,82 @@ def argmax_matmul(ref_p: torch.Tensor, lr_p: torch.Tensor):
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(lr_p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ref_p.data_ptr(), lr_p.data_ptr(), conf.data_ptr(),
-                 index.data_ptr(), n, l_ref, l_lr, d, _DTYPES[ref_p.dtype],
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"argmax_matmul kernel launch failed: CUDA error "
-                           f"{err}")
+    build.launch(fn, lr_p.device, ref_p.data_ptr(), lr_p.data_ptr(),
+                 conf.data_ptr(), index.data_ptr(), n, l_ref, l_lr, d,
+                 _DTYPES[ref_p.dtype])
     argmax_matmul.launches += 1
     return conf, index
 
 
+def argmax_matmul_backward(ref_p: torch.Tensor, lr_p: torch.Tensor,
+                           index: torch.Tensor, g: torch.Tensor):
+    """(d ref_p, d lr_p) of argmax_matmul given conf's gradient g. CPU
+    tensors run the plain backward; CUDA tensors run the backward kernel
+    (anything else raises). ``argmax_matmul_backward.launches`` counts
+    kernel launches."""
+    if ref_p.device.type == "cpu":
+        return argmax_matmul_backward_plain(ref_p, lr_p, index, g)
+    if ref_p.device.type != "cuda" or ref_p.dtype not in _DTYPES:
+        raise ValueError(f"unsupported tensors {ref_p.device} {ref_p.dtype}")
+    g = g.float().contiguous()
+    index = index.contiguous()
+    n, l_ref, d = ref_p.shape
+    l_lr = lr_p.shape[1]
+    if not (ref_p.is_contiguous() and lr_p.is_contiguous()):
+        raise ValueError("argmax_matmul_backward needs contiguous inputs")
+    if index.dtype != torch.int32 or g.shape != (n, l_lr) \
+            or index.shape != (n, l_lr):
+        raise ValueError("argmax_matmul_backward: bad index or gradient")
+    d_ref = torch.zeros(ref_p.shape, dtype=torch.float32,
+                        device=ref_p.device)
+    d_lr = torch.empty_like(lr_p)
+    if d_lr.numel() == 0:
+        return d_ref.to(ref_p.dtype), d_lr
+    fn = build.load("argmax_matmul").argmax_matmul_backward_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    build.launch(fn, ref_p.device, ref_p.data_ptr(), lr_p.data_ptr(),
+                 index.data_ptr(), g.data_ptr(), d_ref.data_ptr(),
+                 d_lr.data_ptr(), n, l_ref, l_lr, d, _DTYPES[ref_p.dtype])
+    argmax_matmul_backward.launches += 1
+    return d_ref.to(ref_p.dtype), d_lr
+
+
+class _ArgmaxMatmul(torch.autograd.Function):
+    """argmax_matmul with its backward pass; saves (ref_p, lr_p, index) as
+    ``_pallas_argmax_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, ref_p, lr_p):
+        conf, index = _forward(ref_p, lr_p)
+        ctx.save_for_backward(ref_p, lr_p, index)
+        ctx.mark_non_differentiable(index)
+        return conf, index
+
+    @staticmethod
+    def backward(ctx, g_conf, _g_index):
+        return argmax_matmul_backward(*ctx.saved_tensors, g_conf)
+
+
+def argmax_matmul(ref_p: torch.Tensor, lr_p: torch.Tensor):
+    """conf (N, L_lr) f32 and index (N, L_lr) int32 of
+    max_r <ref_p[:, r], lr_p[:, l]>.
+
+    CPU tensors run the plain version. CUDA tensors run the kernel (bf16 or
+    f32); anything else raises. With gradients on and an input requiring
+    grad, the call is recorded for autograd (``_ArgmaxMatmul``).
+    ``argmax_matmul.launches`` counts forward kernel launches."""
+    if ref_p.dim() != 3 or lr_p.dim() != 3 or ref_p.shape[0] != lr_p.shape[0] \
+            or ref_p.shape[2] != lr_p.shape[2]:
+        raise ValueError(f"want ref_p (N,L_ref,D) and lr_p (N,L_lr,D); got "
+                         f"{tuple(ref_p.shape)} and {tuple(lr_p.shape)}")
+    if ref_p.device != lr_p.device or ref_p.dtype != lr_p.dtype:
+        raise ValueError("ref_p and lr_p differ in device or dtype")
+    if torch.is_grad_enabled() and (ref_p.requires_grad or lr_p.requires_grad):
+        return _ArgmaxMatmul.apply(ref_p, lr_p)
+    return _forward(ref_p, lr_p)
+
+
 argmax_matmul.launches = 0
+argmax_matmul_backward.launches = 0

@@ -18,6 +18,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -88,3 +90,12 @@ LIBS = _Libraries()
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``."""
     return LIBS.lib(name)
+
+
+def launch(fn, device, *args):
+    """Call the C launcher `fn` with `args` and the current stream of
+    `device` (its last argument); raise on the cudaError_t it returns."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")

@@ -1,8 +1,10 @@
-"""K1: RefVSR's propagation flow warp, as a CUDA kernel and its plain version.
+"""K1: RefVSR's propagation flow warp, as CUDA kernels and their plain
+versions, forward and backward.
 
 Replaces the Pallas kernel ``refvsr_tpu/ops/pallas/warp_select.py``
 (``_select_kernel``, called from ``_exec`` and reached through
-``refvsr_tpu/ops/warp.py:_bilinear_sample``). The kernel source is
+``refvsr_tpu/ops/warp.py:_bilinear_sample``) and its custom VJP (``_bwd``,
+the pullback of ``_bilinear_sample_lean``). The kernel source is
 ``refvsr_tpu_torch/csrc/warp_sample.cu``; it fuses ``warp_coords`` (flow ->
 source coordinates) and gathers the four bilinear corners directly, so the
 TPU's band plan, anchors and fallback have no counterpart here.
@@ -15,6 +17,16 @@ exact 0. The plain version weights the corners in f32, casts the weights to
 the source dtype and sums in the source dtype, like the JAX sampler; the
 kernel sums in f32 and rounds once, which is why the card compares them
 within 2**-6 * max|x| in bf16 and 1e-5 * max|x| in f32.
+
+Gradients: ``warp_sample`` is a ``torch.autograd.Function`` when x or the
+flow requires grad. ``dx`` scatters each live point's four weights times g
+into its inside corners; ``dflow`` (computed only when the flow requires
+grad, and only then is x kept for the backward pass) is the sum over C of g
+times the weights' derivatives, times ``w/(w-1)`` and ``h/(h-1)``. A dead
+point gives exact zeros to both, NaN coordinates included (the JAX pullback
+lets a NaN weight leak into dx through 0 * NaN; the port does not). The
+plain backward is autograd through ``warp_sample_plain``; the kernel
+accumulates dx with f32 atomics and casts it to x's dtype once.
 """
 
 from __future__ import annotations
@@ -62,6 +74,12 @@ def bilinear_sample(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     y0 = torch.floor(sy)
     tx = sx - x0
     ty = sy - y0
+    if padding == "zeros":
+        valid = (y0 >= -1.0) & (y0 <= h - 1.0) & (x0 >= -1.0) & (x0 <= w - 1.0)
+        # a dead point's fractions are zeroed too, so that a NaN coordinate
+        # cannot reach either gradient through 0 * NaN
+        tx = torch.where(valid, tx, 0.0)
+        ty = torch.where(valid, ty, 0.0)
     # NaN/inf coordinates give garbage indices here; they are clipped for
     # the read and the point is zeroed by the final mask
     x0i = torch.nan_to_num(x0, 0.0).clamp(-2.0, w).long()
@@ -82,7 +100,6 @@ def bilinear_sample(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
            + corner(y0i + 1, x0i) * (ty * (1 - tx))[..., None].to(dt)
            + corner(y0i + 1, x0i + 1) * (ty * tx)[..., None].to(dt))
     if padding == "zeros":
-        valid = (y0 >= -1.0) & (y0 <= h - 1.0) & (x0 >= -1.0) & (x0 <= w - 1.0)
         out = torch.where(valid[..., None], out,
                           torch.zeros((), dtype=dt, device=x.device))
     return out
@@ -92,6 +109,20 @@ def warp_sample_plain(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Plain version of the K1 kernel: warp_coords + the zeros sampler."""
     sx, sy = warp_coords(x.shape[1:3], flow)
     return bilinear_sample(x, sx, sy, "zeros")
+
+
+def warp_sample_backward_plain(g: torch.Tensor, flow: torch.Tensor,
+                               x_shape, x: torch.Tensor | None = None):
+    """Plain backward of the K1 kernel: autograd through warp_sample_plain.
+    Returns (dx, dflow or None); dflow is computed when x is given (dx does
+    not depend on x's values, so without x a zero x stands in)."""
+    with torch.enable_grad():
+        xx = (torch.zeros(x_shape, dtype=g.dtype, device=g.device)
+              if x is None else x.detach()).requires_grad_()
+        ff = flow.detach().requires_grad_(x is not None)
+        grads = torch.autograd.grad(warp_sample_plain(xx, ff),
+                                    [xx] if x is None else [xx, ff], g)
+    return grads[0], (None if x is None else grads[1])
 
 
 def _check(x, flow):
@@ -104,24 +135,21 @@ def _check(x, flow):
         raise ValueError("x and flow are on different devices")
 
 
-def warp_sample(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Warp x (N, H, W, C) by flow (N, Ho, Wo, 2) onto the flow's grid.
+def _check_cuda(*ts):
+    t0 = ts[0]
+    if t0.device.type != "cuda":
+        raise ValueError(f"unsupported device {t0.device}")
+    if t0.dtype not in _DTYPES or any(t.dtype != t0.dtype for t in ts):
+        raise TypeError(f"warp_sample takes its tensors all f32 or all bf16, "
+                        f"got {[t.dtype for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("warp_sample needs contiguous tensors")
 
-    CPU tensors run the plain version. CUDA tensors run the kernel, which
-    takes x and flow contiguous, both f32 or both bf16, without gradients;
-    anything else raises. ``warp_sample.launches`` counts kernel launches."""
-    _check(x, flow)
+
+def _forward(x, flow):
     if x.device.type == "cpu":
         return warp_sample_plain(x, flow)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in _DTYPES or flow.dtype != x.dtype:
-        raise TypeError(f"warp_sample takes x and flow both f32 or both "
-                        f"bf16, got {x.dtype} and {flow.dtype}")
-    if not (x.is_contiguous() and flow.is_contiguous()):
-        raise ValueError("warp_sample needs contiguous x and flow")
-    if torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad):
-        raise NotImplementedError("warp_sample has no backward kernel yet")
+    _check_cuda(x, flow)
     n, h, w, c = x.shape
     ho, wo = flow.shape[1], flow.shape[2]
     out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
@@ -131,15 +159,70 @@ def warp_sample(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), flow.data_ptr(), out.data_ptr(), n, h, w, c,
-                 ho, wo, _DTYPES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"warp_sample kernel launch failed: CUDA error "
-                           f"{err}")
+    build.launch(fn, x.device, x.data_ptr(), flow.data_ptr(), out.data_ptr(),
+                 n, h, w, c, ho, wo, _DTYPES[x.dtype])
     warp_sample.launches += 1
     return out
 
 
+def warp_sample_backward(g: torch.Tensor, flow: torch.Tensor, x_shape,
+                         x: torch.Tensor | None = None):
+    """Gradients of warp_sample(x, flow) given the output's gradient g:
+    (dx, dflow or None), dflow when x is given. CPU tensors run the plain
+    backward; CUDA tensors run the backward kernel (anything else raises).
+    ``warp_sample_backward.launches`` counts kernel launches."""
+    if g.device.type == "cpu":
+        return warp_sample_backward_plain(g, flow, x_shape, x)
+    g = g.contiguous()
+    _check_cuda(flow, g, *(() if x is None else (x,)))
+    n, h, w, c = x_shape
+    ho, wo = flow.shape[1], flow.shape[2]
+    dx = torch.zeros((n, h, w, c), dtype=torch.float32, device=g.device)
+    dflow = None if x is None else torch.zeros_like(flow)
+    if g.numel():
+        fn = build.load("warp_sample").warp_sample_backward_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        build.launch(fn, g.device, None if x is None else x.data_ptr(),
+                     flow.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                     None if dflow is None else dflow.data_ptr(), n, h, w, c,
+                     ho, wo, _DTYPES[g.dtype])
+        warp_sample_backward.launches += 1
+    return dx.to(g.dtype), dflow
+
+
+class _WarpSample(torch.autograd.Function):
+    """warp_sample with its backward pass: the plain version for CPU
+    tensors, the kernels for CUDA tensors. x is saved only when the flow's
+    gradient is asked for; dx needs only the flow."""
+
+    @staticmethod
+    def forward(ctx, x, flow):
+        need_dflow = ctx.needs_input_grad[1]
+        ctx.x_shape = tuple(x.shape)
+        ctx.save_for_backward(flow, x if need_dflow else None)
+        return _forward(x, flow)
+
+    @staticmethod
+    def backward(ctx, g):
+        flow, x = ctx.saved_tensors
+        return warp_sample_backward(g, flow, ctx.x_shape, x)
+
+
+def warp_sample(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Warp x (N, H, W, C) by flow (N, Ho, Wo, 2) onto the flow's grid.
+
+    CPU tensors run the plain version. CUDA tensors run the kernel, which
+    takes x and flow contiguous, both f32 or both bf16; anything else
+    raises. With gradients on and x or the flow requiring grad, the call is
+    recorded for autograd (``_WarpSample``). ``warp_sample.launches``
+    counts forward kernel launches."""
+    _check(x, flow)
+    if torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad):
+        return _WarpSample.apply(x, flow)
+    return _forward(x, flow)
+
+
 warp_sample.launches = 0
+warp_sample_backward.launches = 0

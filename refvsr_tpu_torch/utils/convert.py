@@ -5,7 +5,9 @@ The port's modules carry the reference torch state-dict keys, so a reference
 package's parameters (a flax tree) come across with ``params_from_jax``,
 which maps every flax leaf path to its reference key with this module's own
 copy of the rules of ``refvsr_tpu/utils/convert.py:_torch_key_for`` (the
-RefVSR subset) and transposes conv kernels HWIO -> OIHW."""
+RefVSR subset) and transposes conv kernels HWIO -> OIHW. The JAX
+``LossModule``'s parameters (``cx_<type>/vgg/conv_<i>``) come across into
+the port's ``losses.LossModule`` with ``loss_params_from_jax``."""
 
 from __future__ import annotations
 
@@ -94,6 +96,28 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
         alt = k.replace(".map64.", ".map128.")
         if alt[:-len("bias")] + "weight" in sd:
             sd[alt] = sd.pop(k)
+    return sd
+
+
+def loss_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """The port's LossModule state_dict from the JAX LossModule's param tree
+    (nested dicts of numpy arrays, with or without the top 'params'):
+    ``cx_<type>/vgg/conv_<i>/conv/{kernel,bias}`` ->
+    ``cx_<type>.vgg.<i>.{weight,bias}``, kernels HWIO -> OIHW."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    sd = {}
+    for path, leaf in _leaves(tree):
+        cx, vgg, conv, inner, name = path
+        m = re.fullmatch(r"conv_(\d+)", conv)
+        if vgg != "vgg" or inner != "conv" or m is None:
+            raise ValueError(f"not a loss VGG leaf: {path}")
+        v = np.asarray(leaf)
+        if v.ndim == 4:             # HWIO -> OIHW
+            v = v.transpose(3, 2, 0, 1)
+        suffix = "weight" if name == "kernel" else "bias"
+        sd[f"{cx}.vgg.{m.group(1)}.{suffix}"] = torch.from_numpy(
+            np.array(v, order="C"))
     return sd
 
 

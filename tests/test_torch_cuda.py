@@ -8,16 +8,22 @@ port, and runs there without the repository's conftest:
 
 Tolerances: K1 1e-5 * max|x| in f32 (f32 weights, the four products summed
 in another order); K2 conf 1e-5 in f32 (dot products of length 144 in
-another order), indices equal, ties to the lowest index."""
+another order), indices equal, ties to the lowest index. The backward
+kernels against the plain backward passes, f32: K1 dx and dflow within
+1e-5 of the largest plain value (f32 atomics sum in another order), exact
+zeros at dead points; K2 d_lr within 1e-6 and d_ref within 1e-5 of the
+largest (atomics), no gradient for duplicated ref rows that never win."""
 
 import numpy as np
 import pytest
 import torch
 
-from refvsr_tpu_torch.ops.kernels.argmax_matmul import (argmax_matmul,
-                                                        argmax_matmul_plain)
-from refvsr_tpu_torch.ops.kernels.warp_sample import (warp_sample,
-                                                      warp_sample_plain)
+from refvsr_tpu_torch.ops.kernels.argmax_matmul import (
+    argmax_matmul, argmax_matmul_backward, argmax_matmul_backward_plain,
+    argmax_matmul_plain)
+from refvsr_tpu_torch.ops.kernels.warp_sample import (
+    warp_coords, warp_sample, warp_sample_backward,
+    warp_sample_backward_plain, warp_sample_plain)
 
 
 @pytest.fixture
@@ -53,10 +59,46 @@ def test_warp_kernel_matches_plain(gen, cuda_device, n, h, w, c, ho, wo):
 
 
 @pytest.mark.cuda
-def test_warp_kernel_refuses_grad(cuda_device):
-    x = torch.zeros((1, 4, 4, 3), device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        warp_sample(x, torch.zeros((1, 4, 4, 2), device=cuda_device))
+@pytest.mark.parametrize("n,h,w,c,ho,wo", [(2, 33, 131, 49, 66, 262),
+                                           (1, 40, 140, 5, 37, 130)])
+def test_warp_backward_kernel_matches_plain(gen, cuda_device, n, h, w, c,
+                                            ho, wo):
+    x = torch.from_numpy(gen.standard_normal((n, h, w, c))
+                         .astype(np.float32)).to(cuda_device)
+    flow = gen.uniform(-6, 6, (n, ho, wo, 2)).astype(np.float32)
+    flow[:, :3, :5] += 5000.0                      # dead: out of range
+    flow[gen.random((n, ho, wo)) < 0.02, 1] = np.nan   # dead: NaN
+    flow = torch.from_numpy(flow).to(cuda_device)
+    g = torch.from_numpy(gen.standard_normal((n, ho, wo, c))
+                         .astype(np.float32)).to(cuda_device)
+    before = warp_sample_backward.launches
+    dx, dflow = warp_sample_backward(g, flow, x.shape, x)
+    assert warp_sample_backward.launches == before + 1
+    dx_p, dflow_p = warp_sample_backward_plain(g, flow, x.shape, x)
+    sx, sy = warp_coords((h, w), flow)
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    dead = ~((x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1))
+    assert bool(dead.any()) and bool((dflow[dead] == 0).all())
+    for got, want in ((dx, dx_p), (dflow, dflow_p)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+def test_warp_autograd_runs_backward_kernel(gen, cuda_device):
+    x = torch.from_numpy(gen.standard_normal((1, 20, 30, 8))
+                         .astype(np.float32)).to(cuda_device)
+    flow = torch.from_numpy(gen.uniform(-3, 3, (1, 40, 60, 2))
+                            .astype(np.float32)).to(cuda_device)
+    xg = x.clone().requires_grad_(True)
+    before = (warp_sample.launches, warp_sample_backward.launches)
+    warp_sample(xg, flow).square().sum().backward()
+    assert (warp_sample.launches, warp_sample_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    xp = x.clone().requires_grad_(True)
+    warp_sample_plain(xp, flow).square().sum().backward()
+    assert float((xg.grad - xp.grad).abs().max()) <= 1e-5 * float(
+        xp.grad.abs().max())
 
 
 @pytest.mark.cuda
@@ -80,3 +122,31 @@ def test_argmax_kernel_matches_plain(gen, cuda_device, n, l_ref, l_lr, d):
     assert torch.equal(idx, idx_p)
     assert torch.equal(idx[:, :dup].cpu(),
                        torch.arange(dup, dtype=torch.int32).expand(n, dup))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,l_ref,l_lr,d", [(2, 300, 517, 144),
+                                            (14, 1024, 1024, 144)])
+def test_argmax_backward_kernel_matches_plain(gen, cuda_device, n, l_ref,
+                                              l_lr, d):
+    dup = 20
+    ref = gen.standard_normal((n, l_ref, d)).astype(np.float32)
+    ref[:, -dup:] = ref[:, :dup]
+    lr = gen.standard_normal((n, l_lr, d)).astype(np.float32)
+    lr[:, :dup] = ref[:, :dup]
+    ref /= np.linalg.norm(ref, axis=2, keepdims=True)
+    lr /= np.linalg.norm(lr, axis=2, keepdims=True)
+    ref_t = torch.from_numpy(ref).to(cuda_device).requires_grad_(True)
+    lr_t = torch.from_numpy(lr).to(cuda_device).requires_grad_(True)
+    conf, idx = argmax_matmul(ref_t, lr_t)
+    g = torch.from_numpy(gen.standard_normal((n, l_lr)).astype(np.float32)
+                         ).to(cuda_device)
+    before = argmax_matmul_backward.launches
+    conf.backward(g)
+    assert argmax_matmul_backward.launches == before + 1
+    d_ref_p, d_lr_p = argmax_matmul_backward_plain(ref_t.detach(),
+                                                   lr_t.detach(), idx, g)
+    assert float((lr_t.grad - d_lr_p).abs().max()) <= 1e-6
+    assert float((ref_t.grad - d_ref_p).abs().max()) <= 1e-5 * float(
+        d_ref_p.abs().max())
+    assert bool((ref_t.grad[:, -dup:] == 0).all())

@@ -10,8 +10,19 @@ chip_smoke.py and tests/test_torch_cuda.py.
 
 Tolerances: K1 atol 2e-5 in f32 (the same f32 weights; the four products
 are summed in another order); K2 conf atol 1e-5 (f32 dot products of
-length 36 in another order), indices equal."""
+length 36 in another order), indices equal.
 
+The backward passes: K1's plain backward (autograd through the plain
+version, as ``_WarpSample`` runs it on the CPU) against ``jax.vjp`` of
+``refvsr_tpu.ops.warp.warp``, dx and dflow within 1e-5 of their largest
+magnitude (f32 sums in another order). Where a NaN coordinate makes the
+JAX pullback leak NaN into dx (0 * NaN weight), the port gives finite
+values and exact zeros at every dead point. K2's plain backward against
+``jax.vjp`` of ``pallas_argmax_matmul(..., interpret=True)`` within 1e-6,
+duplicated ref rows included (the gradient goes to the first occurrence
+only)."""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,13 +32,14 @@ import refvsr_tpu.ops.pallas.warp_select as ws
 from refvsr_tpu.models.matching import tiled_argmax_matmul
 from refvsr_tpu.ops.pallas.matching_kernel import pallas_argmax_matmul
 from refvsr_tpu.ops.warp import _bilinear_sample_lean
+from refvsr_tpu.ops.warp import warp as jax_warp
 from refvsr_tpu.ops.warp import warp_coords as jax_warp_coords
-from refvsr_tpu_torch.ops.kernels.argmax_matmul import (argmax_matmul,
-                                                        argmax_matmul_plain)
-from refvsr_tpu_torch.ops.kernels.warp_sample import (bilinear_sample,
-                                                      warp_coords,
-                                                      warp_sample,
-                                                      warp_sample_plain)
+from refvsr_tpu_torch.ops.kernels.argmax_matmul import (
+    argmax_matmul, argmax_matmul_backward, argmax_matmul_backward_plain,
+    argmax_matmul_plain)
+from refvsr_tpu_torch.ops.kernels.warp_sample import (
+    bilinear_sample, warp_coords, warp_sample, warp_sample_backward,
+    warp_sample_backward_plain, warp_sample_plain)
 
 torch.set_num_threads(2)
 
@@ -172,3 +184,68 @@ def test_wrappers_reject_bad_shapes():
         warp_sample(torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 3))
     with pytest.raises(ValueError):
         argmax_matmul(torch.zeros(1, 4, 8), torch.zeros(1, 5, 9))
+
+
+@pytest.mark.parametrize("n,h,w,c,ho,wo", [(1, 21, 30, 5, 21, 30),
+                                           (2, 17, 23, 9, 34, 46)])
+def test_warp_plain_backward_matches_jax_vjp(rng, n, h, w, c, ho, wo):
+    x = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    flow = _flow(rng, n, ho, wo)
+    g = rng.standard_normal((n, ho, wo, c)).astype(np.float32)
+    _, vjp = jax.vjp(jax_warp, jnp.asarray(x), jnp.asarray(flow))
+    dx_j, dflow_j = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+
+    xt = torch.from_numpy(x).requires_grad_(True)
+    ft = torch.from_numpy(flow).requires_grad_(True)
+    warp_sample.launches = 0
+    warp_sample(xt, ft).backward(torch.from_numpy(g))
+    assert warp_sample.launches == 0 and warp_sample_backward.launches == 0
+    dx, dflow = xt.grad.numpy(), ft.grad.numpy()
+    assert np.isfinite(dx).all() and np.isfinite(dflow).all()
+    sx, sy = warp_coords((h, w), torch.from_numpy(flow))
+    dead = _dead_mask(sx.numpy(), sy.numpy(), h, w)
+    assert dead.any() and np.isnan(flow).any()
+    assert np.all(dflow[dead] == 0)
+    ok = np.isfinite(dx_j)
+    assert ok.mean() > 0.5
+    np.testing.assert_allclose(dx[ok], dx_j[ok], rtol=0,
+                               atol=1e-5 * np.abs(dx_j[ok]).max())
+    live = ~dead
+    np.testing.assert_allclose(dflow[live], dflow_j[live], rtol=0,
+                               atol=1e-5 * np.abs(dflow_j[live]).max())
+    # the Function's CPU backward is the plain backward, dx-only included
+    dx_only, none = warp_sample_backward_plain(
+        torch.from_numpy(g), torch.from_numpy(flow), x.shape)
+    assert none is None
+    np.testing.assert_array_equal(dx_only.numpy(), dx)
+
+
+@pytest.mark.parametrize("n,l_ref,l_lr,d", [(2, 300, 517, 36),
+                                            (1, 77, 130, 144)])
+def test_argmax_plain_backward_matches_pallas_vjp(rng, n, l_ref, l_lr, d):
+    dup = 20
+    ref, lr = _patch_rows(rng, n, l_ref, l_lr, d, dup)
+    g = rng.standard_normal((n, l_lr)).astype(np.float32)
+    (conf_j, idx_j), vjp = jax.vjp(
+        lambda r, l: pallas_argmax_matmul(r, l, 128, 128, True),
+        jnp.asarray(ref), jnp.asarray(lr))
+    d_ref_j, d_lr_j = (np.asarray(a) for a in vjp(
+        (jnp.asarray(g), np.zeros(idx_j.shape, jax.dtypes.float0))))
+
+    ref_t = torch.from_numpy(ref).requires_grad_(True)
+    lr_t = torch.from_numpy(lr).requires_grad_(True)
+    argmax_matmul.launches = 0
+    conf, idx = argmax_matmul(ref_t, lr_t)
+    assert not idx.requires_grad
+    conf.backward(torch.from_numpy(g))
+    assert argmax_matmul.launches == 0
+    assert argmax_matmul_backward.launches == 0
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+    np.testing.assert_allclose(lr_t.grad.numpy(), d_lr_j, atol=1e-6)
+    np.testing.assert_allclose(ref_t.grad.numpy(), d_ref_j, atol=1e-6)
+    # the duplicated rows (the last `dup`) never win, so get no gradient
+    assert np.all(ref_t.grad.numpy()[:, -dup:] == 0)
+    d_ref, d_lr = argmax_matmul_backward_plain(
+        ref_t.detach(), lr_t.detach(), idx, torch.from_numpy(g))
+    np.testing.assert_array_equal(d_ref.numpy(), ref_t.grad.numpy())
+    np.testing.assert_array_equal(d_lr.numpy(), lr_t.grad.numpy())
