@@ -15,10 +15,18 @@ outside a checkout of the repository. Phases, each fatal on failure:
    training shapes (f32) and the serving feature shape (bf16), with the
    same poisoned flows, dx and dflow; K2's at the training shape (f32) and
    the serving shape (bf16, 1,000 duplicated ref rows), d_lr and d_ref;
-6. small-input agreement checks: the port on the card (f32, kernels)
+6. the microbenchmark paths, K3 and K4's only callers: the entry points
+   ``bench.microbench_conv.run`` (K3 ``conv3x3_bias`` at 1080x1920x48 bf16
+   beside cuDNN's conv with and without bias, and the device kernels each
+   library call launches) and ``bench.microbench_gather.run`` (K4
+   ``gather_rows``, R 2048, L 128 bf16, P 2^20, beside ``index_select``),
+   each driven with the launch counts set to 0 just before and read just
+   after; then K3 against its plain version at ragged shapes and K4's check
+   mode (f32 and bf16, indices out of range on both sides);
+7. small-input agreement checks: the port on the card (f32, kernels)
    against the port on the CPU (f32, plain versions), for the stream and
    for one training step (losses and gradients);
-7. the streaming path at full width: RefVSR_MFID_8K (30 blocks, 48
+8. the streaming path at full width: RefVSR_MFID_8K (30 blocks, 48
    channels, seeded random weights, bf16) streaming 1080p windows of 7
    frames into 4320x7680 frames through ``StreamRunner``: one
    ``forward_first`` and three ``forward_stream`` windows, with each
@@ -28,7 +36,7 @@ outside a checkout of the repository. Phases, each fatal on failure:
    every call of a further streamed window, and the calls of a new first
    window at the shapes the streamed window lacks (K1 from the low-res grid
    to the 2x one; K2 at batch 7);
-8. the training path at full width: RefVSR_MFID_8K trained as the JAX
+9. the training path at full width: RefVSR_MFID_8K trained as the JAX
    package trains it (loss '1*L1_lf+0.1*MFID_ref' at relu4_4, f32, patch
    128, 7 frames, Adam with global-norm clipping and the CA schedule) on a
    seeded synthetic batch, at batch 2 instead of the config's 8 (batch 8
@@ -41,7 +49,9 @@ Then one ``{"kernels": [...]}`` line and, last, the device line. A kernel's
 ``ms`` there is its device time in the profiled window (forward kernels:
 the streamed window; backward kernels: the training step); ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are summed over the captured window's or
-step's calls. f32 comparisons run with TF32 off for both matmuls and cuDNN
+step's calls. K3's and K4's ``ms``, ``plain_ms`` and ``library_ms`` are
+CUDA-event times of one call each at their microbenchmark's default
+shape. f32 comparisons run with TF32 off for both matmuls and cuDNN
 convolutions; the full-width training runs under PyTorch's default f32
 policy (TF32 for cuDNN convolutions, not for matmuls), as a user's trainer
 would.
@@ -59,10 +69,7 @@ import time
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): bytes/s, bf16 tensor and
-# f32 non-tensor FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from refvsr_tpu_torch.bench import bound_ms, cuda_ms
 
 # main-path geometry: 1080p input, T = 7, scale 4 with HD input
 N, T, H, W = 1, 7, 1080, 1920
@@ -74,8 +81,11 @@ K2_SHAPE = (32400, 129600, 144, 1000)
 # 2 x 7 frames' 32x32 LR features against 32x32 ref features
 TRAIN_BATCH = 2
 K2_TRAIN_SHAPE = (2 * T, 1024, 1024, 144, 16)
-# the largest K2 similarity matrix the matmul + max yardstick materialises
+# the largest K2 similarity matrix the matmul + max yardstick materialises;
+# past it, the yardstick runs one batch element at a time
 K2_LIBRARY_MAX_BYTES = 16e9
+# K3 against its plain version at ragged shapes (H, W), C
+K3_RAGGED = (((37, 53), 16), ((25, 131), 48))
 
 
 def log(*a):
@@ -90,30 +100,6 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
-
-
-def cuda_ms(fn, iters=10, warmup=2):
-    """Mean device time of fn() over `iters` runs, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(nbytes, flops, dtype):
-    """Least time for the work: the larger of bytes over the memory rate
-    and operations over the peak rate for their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
 
 
 def card_line():
@@ -391,12 +377,20 @@ def k2_case(name, ref, lr, dup=0, iters=5, plain_iters=2):
     if sim_bytes <= K2_LIBRARY_MAX_BYTES:
         library_ms = cuda_ms(lambda: torch.matmul(
             lr, ref.transpose(1, 2)).max(dim=2), iters=iters)
+    elif sim_bytes / n <= K2_LIBRARY_MAX_BYTES:
+        # 2n calls: one batch element's similarity fits, the whole does not
+        def per_item():
+            for b in range(n):
+                torch.matmul(lr[b], ref[b].T).max(dim=1)
+        library_ms = cuda_ms(per_item, iters=iters)
     nbytes = (ref.numel() + lr.numel()) * ref.element_size() + n * l_lr * 8
     flops = 2.0 * n * l_lr * l_ref * d
     b_ms, b_by = bound_ms(nbytes, flops, ref.dtype)
     lib = ("not run: the similarity would be "
            f"{sim_bytes / 1e9:.1f} GB" if library_ms is None
-           else f"{library_ms:.3f} ms")
+           else f"{library_ms:.3f} ms" + (
+               f" (one batch element at a time, {2 * n} calls)"
+               if sim_bytes > K2_LIBRARY_MAX_BYTES else ""))
     log(f"K2 {name}: ref {tuple(ref.shape)} x lr {tuple(lr.shape)} "
         f"{ref.dtype}; max_abs_err {err:.3e} (limit 1e-4); indices "
         f"differing from plain {n_diff} (all within 1e-4 of the max; worst "
@@ -494,6 +488,46 @@ def phase_k2_backward(dev):
     return cases
 
 
+# ------------------------------------------------- K3 and K4 (microbenchmarks)
+
+
+def phase_microbench(card):
+    """K3's and K4's paths: their microbenchmark entry points at the default
+    sizes, each driven with every launch count set to 0 just before and
+    read just after; then K3 at ragged shapes and K4's check mode, whose
+    launches only compare the kernels with their plain versions. Returns
+    (launches by path, {kernel: (default-size numbers, every case)})."""
+    from refvsr_tpu_torch.bench import microbench_conv, microbench_gather
+    launches, main = {}, {}
+    for path, run in (("microbench_conv", microbench_conv.run),
+                      ("microbench_gather", microbench_gather.run)):
+        reset_launches()
+        main[path] = run(log=log)
+        launches[path] = read_launches()
+        name = BENCH_FNS[path]
+        check(launches[path][name] > 0 and not any(
+            v for k, v in launches[path].items() if k != name),
+            f"{path}: launches {launches[path]}")
+    conv, gather = main["microbench_conv"], main["microbench_gather"]
+    conv_cases = [conv] + [microbench_conv.run(
+        size, c, iters=3, trace=False, log=log) for size, c in K3_RAGGED]
+    for case in conv_cases:
+        check(case["finite"] and case["ratio"] <= 1.0,
+              f"K3 {case['shape']}: |kernel - plain| at {case['ratio']:.3f} "
+              f"of the envelope 2^-7 |plain| + 2^-8 max|plain|")
+    check(gather["equal"], "K4 at the default size: kernel != plain")
+    gather_cases = [gather] + microbench_gather.check(log=log)
+    check(all(c["equal"] for c in gather_cases),
+          "K4: kernel != plain in a check case")
+    check(any(c.get("clamped") for c in gather_cases),
+          "K4: no case clamped an index")
+    torch.cuda.empty_cache()
+    log(json.dumps(dict(microbench=dict(
+        card=card, launches=launches, conv=conv, gather=gather))))
+    return launches, {"conv3x3_bias": (conv, conv_cases),
+                      "gather_rows": (gather, gather_cases)}
+
+
 # ---------------------------------------------------------------- nets
 
 
@@ -541,17 +575,25 @@ def window(arrays, i, t):
             arrays["HR_UW"][:, i + t // 2], arrays["HR_REF_T"][:, :i + t])
 
 
+# the kernels of the stream and training paths; K3 and K4 run only on the
+# microbenchmark paths
 KERNEL_FNS = ("warp_sample", "warp_sample_backward", "argmax_matmul",
               "argmax_matmul_backward")
+BENCH_FNS = {"microbench_conv": "conv3x3_bias",
+             "microbench_gather": "gather_rows"}
 
 
 def _kernel_fns():
     from refvsr_tpu_torch.ops.kernels import argmax_matmul as k2
+    from refvsr_tpu_torch.ops.kernels import conv3x3 as k3
+    from refvsr_tpu_torch.ops.kernels import gather_rows as k4
     from refvsr_tpu_torch.ops.kernels import warp_sample as k1
     return {"warp_sample": k1.warp_sample,
             "warp_sample_backward": k1.warp_sample_backward,
             "argmax_matmul": k2.argmax_matmul,
-            "argmax_matmul_backward": k2.argmax_matmul_backward}
+            "argmax_matmul_backward": k2.argmax_matmul_backward,
+            "conv3x3_bias": k3.conv3x3_bias,
+            "gather_rows": k4.gather_rows}
 
 
 def reset_launches():
@@ -599,7 +641,7 @@ def phase_small_training(dev):
                   {k: None if g is None else g.detach().cpu()
                    for k, g in zip(names, grads)}, launches)
     (errs_c, grads_c, _), (errs_g, grads_g, launches) = res["cpu"], res[dev]
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in KERNEL_FNS),
           f"small training: a kernel was not launched on the card "
           f"{launches}")
     check(set(errs_c) == set(errs_g) and set(grads_c) == set(grads_g),
@@ -772,6 +814,8 @@ def phase_main_path(dev, card):
     check(launches["warp_sample_backward"] == 0
           and launches["argmax_matmul_backward"] == 0,
           "streaming launched a backward kernel")
+    check(not any(launches[k] for k in BENCH_FNS.values()),
+          "streaming launched K3 or K4")
     peak = torch.cuda.max_memory_allocated()
 
     check(tuple(out.shape) == (N, 4 * H, 4 * W, 3),
@@ -888,8 +932,9 @@ def phase_training(dev, card):
     for i, errs in enumerate(tr.window_errs):
         check(all(_finite(v) for v in errs.values()),
               f"training window {i}: non-finite loss {errs}")
-    check(all(v > 0 for v in launches.values()),
-          f"training: a kernel was not launched {launches}")
+    check(all(launches[k] > 0 for k in KERNEL_FNS)
+          and not any(launches[k] for k in BENCH_FNS.values()),
+          f"training: a kernel was not launched, or K3/K4 was {launches}")
     unchanged = [i for i, (p, p0) in enumerate(zip(tr.params, trained0))
                  if torch.equal(p, p0)]
     check(not unchanged, f"training: {len(unchanged)} of {len(trained0)} "
@@ -1024,12 +1069,47 @@ KERNEL_META = {
               "(torch.profiler); plain_ms, library_ms (index_select + "
               "index_add_, two calls) and bound_ms are for the inputs that "
               "step gave it"),
+    "conv3x3_bias": dict(
+        id="K3", source="refvsr_tpu_torch/csrc/conv3x3.cu",
+        replaces="scripts/microbench_pallas_conv.py:80",
+        tolerance="2**-7 * |plain| + 2**-8 * max|plain| elementwise (bf16)",
+        ms_is="CUDA-event time of one call at 1080x1920x48 bf16 in the "
+              "microbenchmark, isolated; library_ms is F.conv2d with bias "
+              "(channels-last bf16, one call), plain_ms the plain version, "
+              "bound_ms for the same inputs"),
+    "gather_rows": dict(
+        id="K4", source="refvsr_tpu_torch/csrc/gather_rows.cu",
+        replaces="scripts/microbench_pallas_gather.py:93",
+        tolerance="bitwise",
+        ms_is="CUDA-event time of one call at R 2048, L 128 bf16, P 2^20 in "
+              "the microbenchmark, isolated; library_ms is index_select, "
+              "plain_ms the plain version, bound_ms for the same inputs"),
 }
 
 
-def kernels_line(synthetic, on_path, in_path, in_step, launches):
+def _case(c):
+    return {k: v for k, v in c.items()
+            if k not in ("nbytes", "flops", "kernels_bias", "kernels_nobias")}
+
+
+def kernels_line(synthetic, on_path, in_path, in_step, launches, bench):
     kernels = []
     for name, m in KERNEL_META.items():
+        by_path = {p: launches[p][name] for p in launches}
+        entry = dict(name=name, id=m["id"], route="cuda", source=m["source"],
+                     replaces=m["replaces"], launches=sum(by_path.values()),
+                     launches_by_path=by_path, tolerance=m["tolerance"],
+                     ms_is=m["ms_is"])
+        if name in bench:
+            main, cases = bench[name]
+            b_ms, b_by = bound_ms(main["nbytes"], main["flops"],
+                                  torch.bfloat16)
+            kernels.append(dict(
+                entry, max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                library_ms=main["library_ms"], bound_ms=b_ms, bound_by=b_by,
+                cases=[_case(c) for c in cases]))
+            continue
         counted, rest = on_path[name]
         forward = name in ("warp_sample", "argmax_matmul")
         ms = (in_path if forward else in_step)[name]
@@ -1041,21 +1121,13 @@ def kernels_line(synthetic, on_path, in_path, in_step, launches):
                               sum(c["flops"] for c in counted), dtype)
         lib = [c["library_ms"] for c in counted]
         cases = synthetic[name] + counted + rest
-        by_path = {p: launches[p][name] for p in launches}
         kernels.append(dict(
-            name=name, id=m["id"], route="cuda", source=m["source"],
-            replaces=m["replaces"], launches=sum(by_path.values()),
-            launches_by_path=by_path,
-            max_abs_err=max(c["max_abs_err"] for c in cases),
-            tolerance=m["tolerance"], ms=ms["ms"], ms_is=m["ms_is"],
-            ms_train_step=in_step[name]["ms"],
+            entry, max_abs_err=max(c["max_abs_err"] for c in cases),
+            ms=ms["ms"], ms_train_step=in_step[name]["ms"],
             isolated_ms=sum(c["ms"] for c in counted),
             plain_ms=sum(c["plain_ms"] for c in counted),
             library_ms=None if None in lib else sum(lib),
-            bound_ms=b_ms, bound_by=b_by,
-            cases=[{k: v for k, v in c.items() if k not in ("nbytes",
-                                                            "flops")}
-                   for c in cases]))
+            bound_ms=b_ms, bound_by=b_by, cases=[_case(c) for c in cases]))
     return kernels
 
 
@@ -1084,17 +1156,18 @@ def main():
     synthetic["warp_sample_backward"] = phase_k1_backward(dev)
     synthetic["argmax_matmul_backward"] = phase_k2_backward(dev)
     torch.cuda.empty_cache()
+    launches, bench = phase_microbench(card)
     phase_small_agreement(dev)
     phase_small_training(dev)
     torch.cuda.empty_cache()
-    launches = {}
     launches["stream"], windows, peak, in_path, stream_calls, first_calls = \
         phase_main_path(dev, card)
     with cudnn_tf32(True):
         launches["train"], train, in_step, train_calls = phase_training(
             dev, card)
     on_path = path_cases(stream_calls, first_calls, train_calls)
-    kernels = kernels_line(synthetic, on_path, in_path, in_step, launches)
+    kernels = kernels_line(synthetic, on_path, in_path, in_step, launches,
+                           bench)
     log(json.dumps(dict(main_path=dict(card=card, windows=windows,
                                        peak_bytes=peak), training=train)))
     log(json.dumps(dict(kernels=kernels)))

@@ -2,13 +2,16 @@
 package ``refvsr_tpu`` that stays the reference.
 
 Layout mirrors ``refvsr_tpu``: ``configs``, ``ops`` (with ``ops/kernels``
-holding the two hand-written CUDA kernels, forward and backward, and their
-plain PyTorch versions), ``models``, ``losses``, ``train``, ``utils`` and
-``eval``. Public op and model functions take and return NHWC tensors, like
-the JAX package.
+holding the hand-written CUDA kernels and their plain PyTorch versions:
+the flow warp and the matching argmax, forward and backward, on the
+stream and training paths; the 3x3 conv + bias and the row gather, run by
+the microbenchmarks in ``bench``), ``models``, ``losses``, ``train``,
+``utils``, ``eval`` and ``bench``. Public op and model functions take and
+return NHWC tensors, like the JAX package.
 
 Device: entry points (``eval.stream.StreamRunner``,
-``models.refvsr.build_refvsr``, ``train.trainer.Trainer``) run on
+``models.refvsr.build_refvsr``, ``train.trainer.Trainer``, the
+microbenchmarks' ``run``) run on
 ``"cuda"`` unless the caller passes ``device="cpu"``; asking for ``"cuda"``
 without a card raises. A kernel wrapper runs its plain version only for
 CPU tensors; for CUDA tensors it launches its kernel or raises, and so does

@@ -12,7 +12,10 @@ another order), indices equal, ties to the lowest index. The backward
 kernels against the plain backward passes, f32: K1 dx and dflow within
 1e-5 of the largest plain value (f32 atomics sum in another order), exact
 zeros at dead points; K2 d_lr within 1e-6 and d_ref within 1e-5 of the
-largest (atomics), no gradient for duplicated ref rows that never win."""
+largest (atomics), no gradient for duplicated ref rows that never win.
+K3 (bf16) within 2^-7 |plain| + 2^-8 max|plain| elementwise: two bf16
+roundings of f32 sums taken in another order. K4 bitwise, out-of-range
+indices clamped."""
 
 import numpy as np
 import pytest
@@ -21,6 +24,12 @@ import torch
 from refvsr_tpu_torch.ops.kernels.argmax_matmul import (
     argmax_matmul, argmax_matmul_backward, argmax_matmul_backward_plain,
     argmax_matmul_plain)
+from refvsr_tpu_torch.bench.microbench_conv import (envelope_ratio,
+                                                    make_inputs)
+from refvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_bias,
+                                                  conv3x3_bias_plain)
+from refvsr_tpu_torch.ops.kernels.gather_rows import (gather_rows,
+                                                      gather_rows_plain)
 from refvsr_tpu_torch.ops.kernels.warp_sample import (
     warp_coords, warp_sample, warp_sample_backward,
     warp_sample_backward_plain, warp_sample_plain)
@@ -150,3 +159,34 @@ def test_argmax_backward_kernel_matches_plain(gen, cuda_device, n, l_ref,
     assert float((ref_t.grad - d_ref_p).abs().max()) <= 1e-5 * float(
         d_ref_p.abs().max())
     assert bool((ref_t.grad[:, -dup:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [(37, 53, 16), (25, 131, 48), (4, 70, 80),
+                                   (1, 1, 32)])
+def test_conv3x3_kernel_matches_plain(cuda_device, h, w, c):
+    x, wm, bias = make_inputs(h, w, c, cuda_device)
+    before = conv3x3_bias.launches
+    got = conv3x3_bias(x, wm, bias)
+    assert conv3x3_bias.launches == before + 1
+    want = conv3x3_bias_plain(x, wm, bias)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert envelope_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,lanes,points,dtype", [
+    (64, 128, 256, torch.float32), (1000, 72, 4099, torch.bfloat16),
+    (3, 4, 1, torch.float32)])
+def test_gather_kernel_matches_plain(gen, cuda_device, rows, lanes, points,
+                                     dtype):
+    tab = torch.from_numpy(gen.standard_normal((rows, lanes))
+                           .astype(np.float32)).to(cuda_device, dtype)
+    idx = torch.from_numpy(gen.integers(-50, rows + 50, (points, 1),
+                                        dtype=np.int32)).to(cuda_device)
+    idx[0] = -1
+    before = gather_rows.launches
+    got = gather_rows(tab, idx)
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, gather_rows_plain(tab, idx))
+    assert torch.equal(got[0], tab[0])
