@@ -10,7 +10,9 @@ outside a checkout of the repository. Phases, each fatal on failure:
 2. build the CUDA kernels from ``refvsr_tpu_torch/csrc`` (one nvcc each);
 3. K1 ``warp_sample`` against its plain version at both main-path shapes
    (bf16) and one small f32 case, with out-of-range and NaN coordinates;
-4. K2 ``argmax_matmul`` against its plain version at the main-path shape;
+4. K2 ``argmax_matmul`` against its plain version at the main-path shape,
+   and in bf16 and f32 at ragged sizes with exact ties planted across the
+   kernels' tile and lane boundaries;
 5. the backward kernels against their plain backward passes: K1's at both
    training shapes (f32) and the serving feature shape (bf16), with the
    same poisoned flows, dx and dflow; K2's at the training shape (f32) and
@@ -70,6 +72,7 @@ import numpy as np
 import torch
 
 from refvsr_tpu_torch.bench import bound_ms, cuda_ms
+from refvsr_tpu_torch.bench.ties import tied_rows
 
 # main-path geometry: 1080p input, T = 7, scale 4 with HD input
 N, T, H, W = 1, 7, 1080, 1920
@@ -200,7 +203,7 @@ def k1_case(name, x, flow, tol, need_dead=False):
         f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(case=name, max_abs_err=err, tolerance=limit, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                bound_by=b_by, nbytes=nbytes, flops=flops)
+                bound_by=b_by, nbytes=nbytes, flops=flops, peak=x.dtype)
 
 
 def phase_k1(dev):
@@ -302,7 +305,7 @@ def k1_bwd_case(name, g, flow, x_shape, x=None, need_dead=False):
     return dict(case=name, max_abs_err=max(err.values()),
                 tolerance=max(limit.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                nbytes=nbytes, flops=flops)
+                nbytes=nbytes, flops=flops, peak=torch.float32)
 
 
 def phase_k1_backward(dev):
@@ -337,11 +340,17 @@ def _k2_inputs(gen, n, l_ref, l_lr, d, dup, dtype, dev):
     return ref, lr
 
 
-def k2_case(name, ref, lr, dup=0, iters=5, plain_iters=2):
+# ragged sizes for K2's planted ties (refvsr_tpu_torch.bench.ties), not
+# multiples of any tile: (n, L_ref, L_lr, D)
+K2_TIE_SHAPE = (3, 1000, 3001, 144)
+
+
+def k2_case(name, ref, lr, dup=0, first=(), iters=5, plain_iters=2):
     """K2 kernel vs plain on one input; returns a dict of its numbers.
     conf within 1e-4; the kernel's pick scores within 1e-4 of the max (so
     picks may differ only where the top-2 gap is <= 1e-4); the last `dup`
-    ref rows, copies of the first ones, never win."""
+    ref rows, copies of the first ones, never win; LR row i picks
+    `first[i]`."""
     from refvsr_tpu_torch.ops.kernels.argmax_matmul import (
         argmax_matmul, argmax_matmul_plain)
     n, l_ref, d = ref.shape
@@ -367,6 +376,11 @@ def k2_case(name, ref, lr, dup=0, iters=5, plain_iters=2):
         late = int((idx >= l_ref - dup).sum())
         check(late == 0, f"K2 {name}: {late} ties went to the later "
               f"duplicate")
+    if first:
+        want = torch.tensor(first, dtype=torch.int32, device=idx.device)
+        got = idx[:, :len(first)]
+        check(bool((got == want).all()), f"K2 {name}: planted ties picked "
+              f"{got.tolist()}, not {list(first)}")
     ms = cuda_ms(lambda: argmax_matmul(ref, lr), iters=iters)
     plain_ms = cuda_ms(lambda: argmax_matmul_plain(ref, lr),
                        iters=plain_iters, warmup=1)
@@ -384,8 +398,11 @@ def k2_case(name, ref, lr, dup=0, iters=5, plain_iters=2):
                 torch.matmul(lr[b], ref[b].T).max(dim=1)
         library_ms = cuda_ms(per_item, iters=iters)
     nbytes = (ref.numel() + lr.numel()) * ref.element_size() + n * l_lr * 8
-    flops = 2.0 * n * l_lr * l_ref * d
-    b_ms, b_by = bound_ms(nbytes, flops, ref.dtype)
+    # f32 runs three TF32 products per product (3xTF32)
+    f32 = ref.dtype == torch.float32
+    peak = "tf32" if f32 else ref.dtype
+    flops = (3 if f32 else 1) * 2.0 * n * l_lr * l_ref * d
+    b_ms, b_by = bound_ms(nbytes, flops, peak)
     lib = ("not run: the similarity would be "
            f"{sim_bytes / 1e9:.1f} GB" if library_ms is None
            else f"{library_ms:.3f} ms" + (
@@ -395,18 +412,26 @@ def k2_case(name, ref, lr, dup=0, iters=5, plain_iters=2):
         f"{ref.dtype}; max_abs_err {err:.3e} (limit 1e-4); indices "
         f"differing from plain {n_diff} (all within 1e-4 of the max; worst "
         f"{gap:.3e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul + "
-        f"max {lib}, bound {b_ms:.4f} ms ({b_by})")
+        f"max {lib}, bound {b_ms:.4f} ms ({b_by}, {peak})")
     return dict(case=name, max_abs_err=err, tolerance=1e-4, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=b_by, index_differs=n_diff, nbytes=nbytes,
-                flops=flops)
+                flops=flops, peak=peak)
 
 
 def phase_k2(dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     l_ref, l_lr, d, dup = K2_SHAPE
     ref, lr = _k2_inputs(gen, 1, l_ref, l_lr, d, dup, torch.bfloat16, dev)
-    return [k2_case("synthetic bf16", ref, lr, dup=dup)]
+    cases = [k2_case("synthetic bf16", ref, lr, dup=dup)]
+    del ref, lr
+    ref, lr, first = tied_rows(np.random.default_rng(2), *K2_TIE_SHAPE)
+    for dt in (torch.bfloat16, torch.float32):
+        cases.append(k2_case(f"ties {str(dt)[6:]}",
+                             torch.from_numpy(ref).to(dev, dt),
+                             torch.from_numpy(lr).to(dev, dt),
+                             first=first.tolist()))
+    return cases
 
 
 def k2_bwd_case(name, ref, lr, index, g, dup=0):
@@ -468,7 +493,7 @@ def k2_bwd_case(name, ref, lr, index, g, dup=0):
     return dict(case=name, max_abs_err=max(err.values()),
                 tolerance=max(limit.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                nbytes=nbytes, flops=flops)
+                nbytes=nbytes, flops=flops, peak=torch.float32)
 
 
 def phase_k2_backward(dev):
@@ -1088,8 +1113,8 @@ KERNEL_META = {
 
 
 def _case(c):
-    return {k: v for k, v in c.items()
-            if k not in ("nbytes", "flops", "kernels_bias", "kernels_nobias")}
+    return {k: v for k, v in c.items() if k not in (
+        "nbytes", "flops", "peak", "kernels_bias", "kernels_nobias")}
 
 
 def kernels_line(synthetic, on_path, in_path, in_step, launches, bench):
@@ -1116,9 +1141,10 @@ def kernels_line(synthetic, on_path, in_path, in_step, launches, bench):
         check(ms["launches"] == len(counted) or not forward,
               f"{name}: {ms['launches']} launches in the profiled window, "
               f"{len(counted)} in the captured one")
-        dtype = torch.bfloat16 if forward else torch.float32
+        peaks = {c["peak"] for c in counted}
+        check(len(peaks) == 1, f"{name}: in-path calls of mixed peaks")
         b_ms, b_by = bound_ms(sum(c["nbytes"] for c in counted),
-                              sum(c["flops"] for c in counted), dtype)
+                              sum(c["flops"] for c in counted), peaks.pop())
         lib = [c["library_ms"] for c in counted]
         cases = synthetic[name] + counted + rest
         kernels.append(dict(

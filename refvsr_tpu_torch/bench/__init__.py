@@ -15,10 +15,10 @@ from __future__ import annotations
 
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): bytes/s, and FLOP/s of the
-# bf16 tensor cores and of f32 outside them
+# published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, and FLOP/s of
+# the bf16 tensor cores, of f32 outside them and of the TF32 tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -36,11 +36,12 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops, dtype):
+def bound_ms(nbytes, flops, peak):
     """Least time for the work on one H100: the larger of bytes over the
-    memory rate and operations over the peak rate for their type."""
+    memory rate and operations over the peak rate `peak` (a key of
+    ``PEAK_FLOPS``: the operations' dtype, or "tf32")."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 

@@ -18,27 +18,40 @@
 //
 // Design: the TPU kernel's band plan, 8-aligned anchors, pre-rotate and
 // fallback exist because TPU row gathers are bound by row count; none of
-// that carries over. Here a block owns PIX consecutive output pixels:
-//   1. one thread per pixel reads its flow, evaluates warp_coords in f32
-//      (same expression and order as the Python warp_coords, with the
-//      round-to-nearest intrinsics so nvcc does not contract it into FMAs),
-//      decides liveness BEFORE any float->int conversion (a NaN anchor fails
-//      every comparison and is dead), and stores the four corner offsets and
-//      f32 weights in shared memory (-1 for a corner outside the image);
-//      forward and backward share this step (pixel_taps), so the backward
-//      pass sees exactly the forward's corners and weights;
-//   2. all threads then walk the PIX*C output elements with neighbouring
-//      threads on neighbouring channels, so each corner access of a pixel is
-//      one contiguous run over C in NHWC, and neighbouring pixels' runs are
-//      adjacent in memory. Any C works (C = 49 carries the confidence map).
-// Forward: the four products are summed in f32 and rounded once to the
+// that carries over. pixel_taps evaluates warp_coords for one output pixel
+// in f32 (same expression and order as the Python warp_coords, with the
+// round-to-nearest intrinsics so nvcc does not contract it into FMAs),
+// decides liveness BEFORE any float->int conversion (a NaN anchor fails
+// every comparison and is dead), and returns the four corner offsets and
+// f32 weights (-1 for a corner outside the image); forward and backward
+// share it, so the backward pass sees exactly the forward's corners and
+// weights.
+// Forward: one thread per (output pixel, group of 16 bytes of channels: 8
+// bf16 or 4 f32). The block is (groups, pixels): threadIdx.x is the group,
+// threadIdx.y the pixel within a run of one output row, blockIdx.y the row
+// and blockIdx.z the batch item, so no index is divided, and consecutive
+// threads cover consecutive 16-byte groups of consecutive output pixels:
+// the stores are contiguous and the neighbouring pixels' corner reads (they
+// share corners, densely so on the 2x grid) meet in L1/L2. Each thread
+// computes its pixel's taps itself (about 30 f32 operations, cheaper than a
+// shared-memory round trip and a barrier) and, when C is a multiple of the
+// group (C % 8 == 0 in bf16, C % 4 == 0 in f32) and x and out are 16-byte
+// aligned, does four 16-byte loads, eight (four) f32 sums and one 16-byte
+// store. Other C (the generic variant, e.g. C = 5) load and store the
+// group's channels one by one. Offsets are 32-bit when every element index
+// fits, else 64-bit: a build with 64-bit offsets only ran the UP warp about
+// 4% slower on the H100 (PERF.md). The feature warp keeps its packed
+// layout (48 features + the confidence map, C = 49; design (a)): its
+// 98-byte pixels are aligned to 2 bytes only, so it takes the generic
+// variant, whose loads L1 merges across the group's threads. The four
+// products are summed in f32 in corner order and rounded once to the
 // output type. Backward: each element scatters weight * g into its inside
-// corners of an f32 dx with atomicAdd (several output points share a source
-// pixel, so atomics decide the summation order); for dflow each element adds
-// g * d(value)/d(tx, ty) into per-pixel f32 sums in shared memory, and one
-// thread per pixel scales them by d(sx)/d(fx) = 0.5 * w * 2/(w-1) (and the
-// same for y) in the order autograd applies the chain rule. Dead points and
-// all-outside corners give exact zeros in both directions.
+// corners of an f32 dx with atomicAdd (several output points share a
+// source pixel, so atomics decide the summation order); for dflow
+// each element adds g * d(value)/d(tx, ty) into per-pixel f32 sums in shared
+// memory, and one thread per pixel scales them by d(sx)/d(fx) = 0.5 * w *
+// 2/(w-1) (and the same for y) in the order autograd applies the chain rule.
+// Dead points and all-outside corners give exact zeros in both directions.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -46,7 +59,7 @@
 
 namespace {
 
-constexpr int PIX = 64;       // output pixels per block
+constexpr int PIX = 64;       // output pixels per block (backward)
 constexpr int THREADS = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -67,18 +80,15 @@ struct Geometry {
   float gsx, fsx, gsy, fsy;  // warp_coords' grid and flow scales
 };
 
-// Corner offsets (-1 outside the image) and weights of output pixel p, and
-// its fractional coordinates; returns whether the point is live.
-template <typename T>
-__device__ __forceinline__ bool pixel_taps(const T* __restrict__ flow,
-                                           long long p, const Geometry& g,
-                                           long long off[4], float wt[4],
-                                           float* tx_out, float* ty_out) {
-  const long long hw_o = (long long)g.ho * g.wo;
-  const long long b = p / hw_o;
-  const long long rem = p - b * hw_o;
-  const int oy = (int)(rem / g.wo);
-  const int ox = (int)(rem - (long long)oy * g.wo);
+// Corner offsets (element index of the corner's channel 0, -1 outside the
+// image) and weights of output pixel p = (b, oy, ox), and its fractional
+// coordinates; returns whether the point is live.
+template <typename T, typename Idx>
+__device__ __forceinline__ bool pixel_taps(const T* __restrict__ flow, Idx p,
+                                           int b, int oy, int ox,
+                                           const Geometry& g, Idx off[4],
+                                           float wt[4], float* tx_out,
+                                           float* ty_out) {
   const float fx = to_f32(flow[2 * p]);
   const float fy = to_f32(flow[2 * p + 1]);
   // xn = gx * gsx + fx * fsx - 1 ; sx = ((xn + 1) * w - 1) * 0.5
@@ -113,7 +123,7 @@ __device__ __forceinline__ bool pixel_taps(const T* __restrict__ flow,
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     if (cy[k] >= 0 && cy[k] < g.h && cx[k] >= 0 && cx[k] < g.w) {
-      off[k] = (((long long)b * g.h + cy[k]) * g.w + cx[k]) * g.c;
+      off[k] = (((Idx)b * g.h + cy[k]) * g.w + cx[k]) * g.c;
       wt[k] = cw[k];
     }
   }
@@ -122,44 +132,53 @@ __device__ __forceinline__ bool pixel_taps(const T* __restrict__ flow,
   return true;
 }
 
-template <typename T>
+// One thread per (output pixel, 16-byte channel group); see the head note.
+// kVec: C is a multiple of the group and x, out are 16-byte aligned.
+template <typename T, typename Idx, bool kVec>
 __global__ void __launch_bounds__(THREADS) warp_sample_kernel(
     const T* __restrict__ x, const T* __restrict__ flow, T* __restrict__ out,
     Geometry geo) {
-  __shared__ long long s_off[PIX][4];
-  __shared__ float s_wt[PIX][4];
+  constexpr int VEC = 16 / sizeof(T);
+  const int ox = blockIdx.x * blockDim.y + threadIdx.y;
+  if (ox >= geo.wo) return;
+  const int oy = blockIdx.y;
+  const int b = blockIdx.z;
+  const Idx p = ((Idx)b * geo.ho + oy) * geo.wo + ox;
+  Idx off[4];
+  float wt[4], tx, ty;
+  pixel_taps<T, Idx>(flow, p, b, oy, ox, geo, off, wt, &tx, &ty);
 
-  const long long p0 = (long long)blockIdx.x * PIX;
-  const int t = threadIdx.x;
-  if (t < PIX) {
-    const long long p = p0 + t;
-    long long off[4] = {-1, -1, -1, -1};
-    float wt[4] = {0.f, 0.f, 0.f, 0.f};
-    float tx, ty;
-    if (p < geo.npix) pixel_taps(flow, p, geo, off, wt, &tx, &ty);
+  const int ch = threadIdx.x * VEC;
+  float acc[VEC];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      s_off[t][k] = off[k];
-      s_wt[t][k] = wt[k];
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (off[k] < 0) continue;
+    const T* src = x + off[k] + ch;
+    if (kVec) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        acc[i] = fmaf(wt[k], to_f32(v[i]), acc[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        if (ch + i < geo.c) acc[i] = fmaf(wt[k], to_f32(src[i]), acc[i]);
     }
   }
-  __syncthreads();
-
-  const int c = geo.c;
-  const long long remaining = geo.npix - p0;
-  const int npx = remaining < PIX ? (int)remaining : PIX;
-  const int total = npx * c;
-  T* out_blk = out + p0 * c;
-  for (int i = t; i < total; i += THREADS) {
-    const int q = i / c;
-    const int ch = i - q * c;
-    float acc = 0.0f;
+  T* dst = out + p * geo.c + ch;
+  if (kVec) {
+    uint4 raw;
+    T* v = reinterpret_cast<T*>(&raw);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const long long o = s_off[q][k];
-      if (o >= 0) acc = fmaf(s_wt[q][k], to_f32(x[o + ch]), acc);
-    }
-    out_blk[i] = from_f32<T>(acc);
+    for (int i = 0; i < VEC; ++i) v[i] = from_f32<T>(acc[i]);
+    *reinterpret_cast<uint4*>(dst) = raw;
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      if (ch + i < geo.c) dst[i] = from_f32<T>(acc[i]);
   }
 }
 
@@ -184,7 +203,15 @@ __global__ void __launch_bounds__(THREADS) warp_sample_backward_kernel(
     float wt[4] = {0.f, 0.f, 0.f, 0.f};
     float tx = 0.f, ty = 0.f;
     bool live = false;
-    if (p < geo.npix) live = pixel_taps(flow, p, geo, off, wt, &tx, &ty);
+    if (p < geo.npix) {
+      const long long hw_o = (long long)geo.ho * geo.wo;
+      const long long b = p / hw_o;
+      const long long rem = p - b * hw_o;
+      const int oy = (int)(rem / geo.wo);
+      const int ox = (int)(rem - (long long)oy * geo.wo);
+      live = pixel_taps<T, long long>(flow, p, (int)b, oy, ox, geo, off, wt,
+                                      &tx, &ty);
+    }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       s_off[t][k] = off[k];
@@ -262,13 +289,40 @@ unsigned blocks_for(const Geometry& g) {
   return (unsigned)((g.npix + PIX - 1) / PIX);
 }
 
+template <typename T, typename Idx, bool kVec>
+void launch_forward(const T* x, const T* flow, T* out, const Geometry& geo,
+                    int n, dim3 block, cudaStream_t stream) {
+  const dim3 grid((unsigned)((geo.wo + block.y - 1) / block.y),
+                  (unsigned)geo.ho, (unsigned)n);
+  warp_sample_kernel<T, Idx, kVec><<<grid, block, 0, stream>>>(x, flow, out,
+                                                                geo);
+}
+
 template <typename T>
 int launch(const void* x, const void* flow, void* out, int n, int h, int w,
            int c, int ho, int wo, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int groups = (c + VEC - 1) / VEC;
+  if (n <= 0 || n > 65535 || ho <= 0 || ho > 65535 || wo <= 0 || c <= 0 ||
+      groups > THREADS)
+    return (int)cudaErrorInvalidValue;
   const Geometry geo = make_geometry(n, h, w, c, ho, wo);
-  warp_sample_kernel<T><<<blocks_for(geo), THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(flow),
-      static_cast<T*>(out), geo);
+  const dim3 block((unsigned)groups, (unsigned)(THREADS / groups));
+  const bool vec = c % VEC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool narrow = (long long)n * h * w * c < (1LL << 31) &&
+                      geo.npix * (c > 2 ? c : 2) < (1LL << 31);
+  const T* xt = static_cast<const T*>(x);
+  const T* ft = static_cast<const T*>(flow);
+  T* ot = static_cast<T*>(out);
+  if (vec && narrow)
+    launch_forward<T, int, true>(xt, ft, ot, geo, n, block, stream);
+  else if (vec)
+    launch_forward<T, long long, true>(xt, ft, ot, geo, n, block, stream);
+  else if (narrow)
+    launch_forward<T, int, false>(xt, ft, ot, geo, n, block, stream);
+  else
+    launch_forward<T, long long, false>(xt, ft, ot, geo, n, block, stream);
   return (int)cudaGetLastError();
 }
 
@@ -286,8 +340,9 @@ int launch_backward(const void* x, const void* flow, const void* g,
 
 }  // namespace
 
-// x, flow and out share one dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError().
+// x, flow and out share one dtype: 0 = float32, 1 = bfloat16. C up to 2048
+// (bf16) or 1024 (f32), n and ho up to 65535. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a shape it does not take.
 extern "C" int warp_sample_launch(const void* x, const void* flow, void* out,
                                   int n, int h, int w, int c, int ho, int wo,
                                   int dtype, void* stream) {

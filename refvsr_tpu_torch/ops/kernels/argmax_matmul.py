@@ -9,6 +9,10 @@ Replaces the Pallas kernel ``refvsr_tpu/ops/pallas/matching_kernel.py``
 For each L2-normalised LR patch row it returns the max of its dot products
 with all ref patch rows (f32) and the first index attaining it (int32): ties
 go to the lowest ref index, as ``torch.max`` and the TPU kernel resolve them.
+On the card, bf16 inputs run on ``wgmma`` (bf16 products, f32 sums) and f32
+inputs on TF32 tensor cores in three products per product (3xTF32: each
+operand split into a TF32 high part and a TF32 remainder), which keeps f32
+parity; both take the argmax from the accumulator registers.
 The plain version is a transcription of ``tiled_argmax_matmul``
 (``refvsr_tpu/models/matching.py:71-111``): f32 products over ref tiles with
 a running (max, argmax) and a strict '>' across tiles.
@@ -31,7 +35,15 @@ import torch
 
 from refvsr_tpu_torch.ops.kernels import build
 
+# the C launchers' arguments before the stream
+_FORWARD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+_BACKWARD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 kernel holds its LR rows' A fragments in registers (D <= 144);
+# the f32 kernel keeps 64 LR rows and two 64-row ref tiles of D + 4 floats
+# in one block's shared memory
+_MAX_D = {torch.float32: 288, torch.bfloat16: 144}
 
 
 def argmax_matmul_plain(ref_p: torch.Tensor, lr_p: torch.Tensor,
@@ -85,9 +97,10 @@ def _forward(ref_p, lr_p):
     l_lr = lr_p.shape[1]
     if l_ref == 0:
         raise ValueError("argmax_matmul needs at least one ref row")
-    if d % 16:
+    if d % 16 or d > _MAX_D[ref_p.dtype]:
         # the path's patch vectors are 3x3x16 = 144 wide
-        raise ValueError(f"argmax_matmul needs D a multiple of 16, got {d}")
+        raise ValueError(f"argmax_matmul needs D a multiple of 16 up to "
+                         f"{_MAX_D[ref_p.dtype]} in {ref_p.dtype}, got {d}")
     for t in (ref_p, lr_p):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("argmax_matmul needs contiguous, 16-byte "
@@ -96,10 +109,8 @@ def _forward(ref_p, lr_p):
     index = torch.empty((n, l_lr), dtype=torch.int32, device=lr_p.device)
     if conf.numel() == 0:
         return conf, index
-    fn = build.load("argmax_matmul").argmax_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("argmax_matmul", "argmax_matmul_launch",
+                        _FORWARD_ARGS)
     build.launch(fn, lr_p.device, ref_p.data_ptr(), lr_p.data_ptr(),
                  conf.data_ptr(), index.data_ptr(), n, l_ref, l_lr, d,
                  _DTYPES[ref_p.dtype])
@@ -131,10 +142,8 @@ def argmax_matmul_backward(ref_p: torch.Tensor, lr_p: torch.Tensor,
     d_lr = torch.empty_like(lr_p)
     if d_lr.numel() == 0:
         return d_ref.to(ref_p.dtype), d_lr
-    fn = build.load("argmax_matmul").argmax_matmul_backward_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("argmax_matmul", "argmax_matmul_backward_launch",
+                        _BACKWARD_ARGS)
     build.launch(fn, ref_p.device, ref_p.data_ptr(), lr_p.data_ptr(),
                  index.data_ptr(), g.data_ptr(), d_ref.data_ptr(),
                  d_lr.data_ptr(), n, l_ref, l_lr, d, _DTYPES[ref_p.dtype])
@@ -163,8 +172,9 @@ def argmax_matmul(ref_p: torch.Tensor, lr_p: torch.Tensor):
     max_r <ref_p[:, r], lr_p[:, l]>.
 
     CPU tensors run the plain version. CUDA tensors run the kernel (bf16 or
-    f32); anything else raises. With gradients on and an input requiring
-    grad, the call is recorded for autograd (``_ArgmaxMatmul``).
+    f32, contiguous, 16-byte aligned, D a multiple of 16 up to 144 in bf16
+    and 288 in f32); anything else raises. With gradients on and an input
+    requiring grad, the call is recorded for autograd (``_ArgmaxMatmul``).
     ``argmax_matmul.launches`` counts forward kernel launches."""
     if ref_p.dim() != 3 or lr_p.dim() != 3 or ref_p.shape[0] != lr_p.shape[0] \
             or ref_p.shape[2] != lr_p.shape[2]:

@@ -29,10 +29,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 class _Libraries:
     """Builds every source once per process; keeps the loaded libraries,
-    the compiler's resource report and the build time."""
+    their typed launchers, the compiler's resource report and the build
+    time."""
 
     def __init__(self):
         self.libs: dict[str, ctypes.CDLL] = {}
+        self.functions = {}   # (library, launcher) -> typed ctypes function
         self.log: dict[str, str] = {}
         self.seconds: float | None = None
 
@@ -83,13 +85,24 @@ class _Libraries:
         self.build_all()
         return self.libs[name]
 
+    def function(self, lib: str, name: str, argtypes: list):
+        fn = self.functions.get((lib, name))
+        if fn is None:
+            fn = getattr(self.lib(lib), name)
+            fn.argtypes = [*argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self.functions[(lib, name)] = fn
+        return fn
+
 
 LIBS = _Libraries()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu``."""
-    return LIBS.lib(name)
+def function(lib: str, name: str, argtypes: list):
+    """The C launcher `name` of ``csrc/<lib>.cu``, typed once, when it is
+    first looked up after its library is loaded: `argtypes` (ctypes types),
+    then the stream; it returns a cudaError_t as an int."""
+    return LIBS.function(lib, name, argtypes)
 
 
 def launch(fn, device, *args):

@@ -23,6 +23,9 @@ import torch.nn.functional as F
 
 from refvsr_tpu_torch.ops.kernels import build
 
+# the C launchers' arguments before the stream
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+
 # the weights (9C x C bf16) and a 6 x 66-pixel halo must fit one block's
 # shared memory: C is 16, 32, 48, 64 or 80
 MAX_CHANNELS = 80
@@ -70,10 +73,7 @@ def conv3x3_bias(x: torch.Tensor, wm: torch.Tensor,
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    fn = build.load("conv3x3").conv3x3_bias_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("conv3x3", "conv3x3_bias_launch", _ARGS)
     build.launch(fn, x.device, x.data_ptr(), wm.data_ptr(), bias.data_ptr(),
                  y.data_ptr(), h, w, c)
     conv3x3_bias.launches += 1

@@ -22,6 +22,9 @@ import torch
 
 from refvsr_tpu_torch.ops.kernels import build
 
+# the C launchers' arguments before the stream
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -65,10 +68,7 @@ def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                       device=tab.device)
     if out.numel() == 0:
         return out
-    fn = build.load("gather_rows").gather_rows_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("gather_rows", "gather_rows_launch", _ARGS)
     build.launch(fn, tab.device, tab.data_ptr(), idx.data_ptr(),
                  out.data_ptr(), rows, row_bytes, idx.numel())
     gather_rows.launches += 1

@@ -7,7 +7,10 @@ Replaces the Pallas kernel ``refvsr_tpu/ops/pallas/warp_select.py``
 the pullback of ``_bilinear_sample_lean``). The kernel source is
 ``refvsr_tpu_torch/csrc/warp_sample.cu``; it fuses ``warp_coords`` (flow ->
 source coordinates) and gathers the four bilinear corners directly, so the
-TPU's band plan, anchors and fallback have no counterpart here.
+TPU's band plan, anchors and fallback have no counterpart here. Its forward
+kernel gives each thread 16 bytes of one output pixel's channels: four
+16-byte corner loads and one 16-byte store where C is a multiple of 8 (bf16)
+or 4 (f32), one channel at a time otherwise.
 
 Semantics (``grid_sample`` align_corners=False, zeros padding, as
 ``refvsr_tpu/ops/warp.py:_bilinear_sample_lean``): anchors ``floor(s)``;
@@ -37,7 +40,12 @@ import torch
 
 from refvsr_tpu_torch.ops.kernels import build
 
+# the C launchers' arguments before the stream
+_FORWARD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+_BACKWARD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_C = {torch.float32: 1024, torch.bfloat16: 2048}
 
 
 def warp_coords(in_hw, flow: torch.Tensor):
@@ -151,14 +159,17 @@ def _forward(x, flow):
         return warp_sample_plain(x, flow)
     _check_cuda(x, flow)
     n, h, w, c = x.shape
+    if c > _MAX_C[x.dtype]:
+        # one thread per 16 bytes of a pixel's channels, and a pixel's
+        # threads in one block of at most 256
+        raise ValueError(f"warp_sample takes C up to {_MAX_C[x.dtype]} in "
+                         f"{x.dtype}, got {c}")
     ho, wo = flow.shape[1], flow.shape[2]
     out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = build.load("warp_sample").warp_sample_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("warp_sample", "warp_sample_launch",
+                        _FORWARD_ARGS)
     build.launch(fn, x.device, x.data_ptr(), flow.data_ptr(), out.data_ptr(),
                  n, h, w, c, ho, wo, _DTYPES[x.dtype])
     warp_sample.launches += 1
@@ -180,10 +191,8 @@ def warp_sample_backward(g: torch.Tensor, flow: torch.Tensor, x_shape,
     dx = torch.zeros((n, h, w, c), dtype=torch.float32, device=g.device)
     dflow = None if x is None else torch.zeros_like(flow)
     if g.numel():
-        fn = build.load("warp_sample").warp_sample_backward_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn = build.function("warp_sample", "warp_sample_backward_launch",
+                            _BACKWARD_ARGS)
         build.launch(fn, g.device, None if x is None else x.data_ptr(),
                      flow.data_ptr(), g.data_ptr(), dx.data_ptr(),
                      None if dflow is None else dflow.data_ptr(), n, h, w, c,
@@ -214,10 +223,11 @@ def warp_sample(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Warp x (N, H, W, C) by flow (N, Ho, Wo, 2) onto the flow's grid.
 
     CPU tensors run the plain version. CUDA tensors run the kernel, which
-    takes x and flow contiguous, both f32 or both bf16; anything else
-    raises. With gradients on and x or the flow requiring grad, the call is
-    recorded for autograd (``_WarpSample``). ``warp_sample.launches``
-    counts forward kernel launches."""
+    takes x and flow contiguous, both f32 or both bf16, C up to 1024 (f32)
+    or 2048 (bf16); anything else raises. With gradients on and x or the
+    flow requiring grad, the call is recorded for autograd
+    (``_WarpSample``). ``warp_sample.launches`` counts forward kernel
+    launches."""
     _check(x, flow)
     if torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad):
         return _WarpSample.apply(x, flow)
