@@ -15,8 +15,15 @@ outside a checkout of the repository. Phases, each fatal on failure:
    kernels' tile and lane boundaries;
 5. the backward kernels against their plain backward passes: K1's at both
    training shapes (f32) and the serving feature shape (bf16), with the
-   same poisoned flows, dx and dflow; K2's at the training shape (f32) and
-   the serving shape (bf16, 1,000 duplicated ref rows), d_lr and d_ref;
+   same poisoned flows, dx and dflow, at the training step's low-res-to-2x
+   UP shape (dx), and with a flow that throws corners far from their
+   neighbours' (dx and dflow); K2's at the training shape (f32), the
+   serving shape (bf16, 1,000 duplicated ref rows), the training shape with
+   every LR row picking one ref row, and with only lr_p's gradient asked
+   for. Each case reports its call's CUDA-event time, its device time
+   (one ``torch.profiler`` pass: the launcher's clear of the f32 dx or
+   d_ref, the kernel and any cast, the work its bound counts) and its
+   kernel's alone;
 6. the microbenchmark paths, K3 and K4's only callers: the entry points
    ``bench.microbench_conv.run`` (K3 ``conv3x3_bias`` at 1080x1920x48 bf16
    beside cuDNN's conv with and without bias, and the device kernels each
@@ -71,7 +78,7 @@ import time
 import numpy as np
 import torch
 
-from refvsr_tpu_torch.bench import bound_ms, cuda_ms
+from refvsr_tpu_torch.bench import bound_ms, cuda_ms, device_kernels
 from refvsr_tpu_torch.bench.ties import tied_rows
 
 # main-path geometry: 1080p input, T = 7, scale 4 with HD input
@@ -118,6 +125,33 @@ def _finite(t):
 
 def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def call_device_ms(fn, wrapper, tag, reps=10, passes=3):
+    """(device ms of one call of fn(), device ms of its kernel alone): means
+    over `reps` calls traced in one torch.profiler pass. The first counts
+    every device operation the calls issue: the launcher's clear of its f32
+    output, the kernel, a cast. `wrapper` is the kernel's wrapper, whose
+    ``launches`` count must rise by `reps` in a pass that shows no kernel
+    named `tag` (else the kernel was not launched: fatal); then the profiler
+    lost it, the pass is logged and run again, and after `passes` such
+    passes neither time is measured (None)."""
+    for _ in range(passes):
+        before = wrapper.launches
+        rows = device_kernels(lambda: [fn() for _ in range(reps)])
+        kernel = sum(m for name, m, _ in rows if tag in name)
+        if kernel > 0:
+            return sum(m for _, m, _ in rows) / reps, kernel / reps
+        launched = wrapper.launches - before
+        check(launched == reps,
+              f"{tag}: {launched} launches in {reps} calls of its wrapper")
+        log(f"profiler pass without {tag} ({launched} launches): device "
+            f"events {[(name[:60], n) for name, _, n in rows][:8]}")
+    return None, None
+
+
+def _ms(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 # ---------------------------------------------------------------- K1
@@ -228,7 +262,8 @@ def phase_k1(dev):
     return cases
 
 
-def k1_bwd_case(name, g, flow, x_shape, x=None, need_dead=False):
+def k1_bwd_case(name, g, flow, x_shape, x=None, need_dx=True,
+                need_dead=False):
     """K1 backward kernel vs its plain backward on one input (the
     arguments of ``warp_sample_backward``); returns a dict of its numbers.
 
@@ -240,14 +275,16 @@ def k1_bwd_case(name, g, flow, x_shape, x=None, need_dead=False):
     zeros."""
     from refvsr_tpu_torch.ops.kernels.warp_sample import (
         warp_sample_backward, warp_sample_backward_plain)
-    dx, dflow = warp_sample_backward(g, flow, x_shape, x)
+    dx, dflow = warp_sample_backward(g, flow, x_shape, x, need_dx)
     dx_p, dflow_p = warp_sample_backward_plain(
         g.float(), flow.float(), x_shape, None if x is None else x.float())
     torch.cuda.synchronize()
     tol = 1e-5 if g.dtype == torch.float32 else 2.0 ** -7
     err, limit = {}, {}
-    for label, got, want in (("dx", dx, dx_p), ("dflow", dflow, dflow_p)):
+    for label, got, want in (("dx", dx, dx_p if need_dx else None),
+                             ("dflow", dflow, dflow_p)):
         if want is None:
+            check(got is None, f"K1-bwd {name}: {label} was not asked for")
             continue
         check(got.shape == want.shape and got.dtype == g.dtype,
               f"K1-bwd {name}: {label} shape/dtype")
@@ -264,7 +301,7 @@ def k1_bwd_case(name, g, flow, x_shape, x=None, need_dead=False):
     if dflow is not None:
         check(bool((dflow[dead] == 0).all()),
               f"K1-bwd {name}: dflow at dead points is not exact zeros")
-    if n_dead:
+    if n_dead and need_dx:
         # a gradient that only dead points carry must leave dx all zeros
         dx_dead, _ = warp_sample_backward(
             torch.where(dead[..., None], g, torch.zeros_like(g)), flow,
@@ -273,10 +310,17 @@ def k1_bwd_case(name, g, flow, x_shape, x=None, need_dead=False):
               f"K1-bwd {name}: dead points reached dx")
     # where the plain sum is exactly zero the atomics' order may leave
     # a rounding residue: reported, held only by the tolerance above
-    odd = (dx_p == 0) & (dx != 0)
+    odd = ((dx_p == 0) & (dx != 0) if need_dx
+           else torch.zeros((), dtype=torch.bool))
     worst = float(dx[odd].float().abs().max()) if bool(odd.any()) else 0.0
 
-    ms = cuda_ms(lambda: warp_sample_backward(g, flow, x_shape, x))
+    def call():
+        return warp_sample_backward(g, flow, x_shape, x, need_dx)
+
+    # host work dominates these calls and the host is shared: 50 calls
+    ms = cuda_ms(call, iters=50)
+    dev_ms, kernel_ms = call_device_ms(
+        call, warp_sample_backward, KERNEL_TAGS["warp_sample_backward"])
     plain_ms = cuda_ms(lambda: warp_sample_backward_plain(
         g, flow, x_shape, x), iters=3)
     # the library yardstick: grid_sample's backward on the same coordinates
@@ -285,41 +329,66 @@ def k1_bwd_case(name, g, flow, x_shape, x=None, need_dead=False):
     inp = inp.permute(0, 3, 1, 2)
     g_nchw = g.permute(0, 3, 1, 2)
     grid = _library_grid((h, w), flow, g.dtype)
-    mask = [True, x is not None]
+    mask = [need_dx, x is not None]
     library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-        g_nchw, inp, grid, 0, 0, False, mask))
+        g_nchw, inp, grid, 0, 0, False, mask), iters=50)
     # bytes: flow and g in, dx out; x in and dflow out when dflow is asked
-    nbytes = _nbytes(flow, g) + n * h * w * c * g.element_size()
-    flops = 8 * g.numel()       # four multiply-adds per value
+    nbytes = _nbytes(flow, g)
+    flops = 0
+    if need_dx:
+        nbytes += n * h * w * c * g.element_size()
+        flops += 8 * g.numel()      # four multiply-adds per value
     if x is not None:
         nbytes += _nbytes(x, flow)
         flops += 14 * g.numel()     # corner differences and their weights
     b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
-    log(f"K1-bwd {name}: g {tuple(g.shape)} {g.dtype} -> dx {x_shape}"
-        f"{' + dflow' if x is not None else ''}; dead {n_dead}; max_abs_err "
+    log(f"K1-bwd {name}: g {tuple(g.shape)} {g.dtype} -> "
+        + " + ".join((["dx " + str(tuple(x_shape))] if need_dx else [])
+                     + (["dflow"] if x is not None else []))
+        + f"; dead {n_dead}; max_abs_err "
         + ", ".join(f"{k} {err[k]:.3e} (limit {limit[k]:.3e})" for k in err)
         + f"; plain-zero dx entries nonzero here {int(odd.sum())} (max "
-        f"{worst:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"grid_sampler_2d_backward {library_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+        f"{worst:.3e}); call {ms:.4f} ms, device {_ms(dev_ms)} (kernel "
+        f"{_ms(kernel_ms)}), "
+        f"plain {plain_ms:.4f} ms, grid_sampler_2d_backward "
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(case=name, max_abs_err=max(err.values()),
-                tolerance=max(limit.values()), ms=ms, plain_ms=plain_ms,
+                tolerance=max(limit.values()), ms=ms, device_ms=dev_ms,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
                 nbytes=nbytes, flops=flops, peak=torch.float32)
+
+
+def _far_flow(gen, n, ho, wo, amp, dev):
+    """Independent random flow vectors of up to +-amp pixels, so each
+    point's corners land far from its neighbours'."""
+    return (torch.rand((n, ho, wo, 2), generator=gen, device=dev) * 2
+            - 1) * amp
 
 
 def phase_k1_backward(dev):
     gen = torch.Generator(device=dev).manual_seed(6)
     cases = []
-    for name, n, h, w, c, amp, dt in (
-            ("train feat f32", TRAIN_BATCH, 128, 128, 49, 6.0, torch.float32),
-            ("train up f32", TRAIN_BATCH, 256, 256, 48, 12.0, torch.float32),
-            ("serve feat bf16", N, H, W, 49, 6.0, torch.bfloat16)):
+    # name, x (n, h, w, c), output grid (ho, wo), flow maker and amplitude,
+    # dtype, whether dflow is asked for
+    for name, (n, h, w, c), (ho, wo), (make, amp), dt, dflow in (
+            ("train feat f32", (TRAIN_BATCH, 128, 128, 49), (128, 128),
+             (_smooth_flow, 6.0), torch.float32, True),
+            ("train up f32", (TRAIN_BATCH, 256, 256, 48), (256, 256),
+             (_smooth_flow, 12.0), torch.float32, True),
+            ("serve feat bf16", (N, H, W, 49), (H, W), (_smooth_flow, 6.0),
+             torch.bfloat16, True),
+            # the training step's UP warp of the low-res features
+            ("train up low-res to 2x f32", (TRAIN_BATCH, 128, 128, 48),
+             (256, 256), (_smooth_flow, 12.0), torch.float32, False),
+            ("train feat far flow f32", (TRAIN_BATCH, 128, 128, 49),
+             (128, 128), (_far_flow, 40.0), torch.float32, True)):
         x = (torch.rand((n, h, w, c), generator=gen, device=dev) * 2 - 1)
-        flow = _poison(_smooth_flow(gen, n, h, w, amp, dev), gen)
-        g = torch.rand((n, h, w, c), generator=gen, device=dev) * 2 - 1
+        flow = _poison(make(gen, n, ho, wo, amp, dev), gen)
+        g = torch.rand((n, ho, wo, c), generator=gen, device=dev) * 2 - 1
         cases.append(k1_bwd_case(name, g.to(dt), flow.to(dt), tuple(x.shape),
-                                 x.to(dt), need_dead=True))
+                                 x.to(dt) if dflow else None,
+                                 need_dead=True))
         del x, flow, g
     return cases
 
@@ -434,24 +503,29 @@ def phase_k2(dev):
     return cases
 
 
-def k2_bwd_case(name, ref, lr, index, g, dup=0):
+def k2_bwd_case(name, ref, lr, index, g, needs=(True, True), dup=0):
     """K2 backward kernel vs its plain backward on the card (the arguments
     of ``argmax_matmul_backward``); returns a dict of its numbers. d_lr is
     one f32 product rounded once in both, so within 1e-6 of its largest
     magnitude; d_ref within 1e-5 of it in f32 and 2**-7 in bf16 (f32
-    atomics in another order, then one rounding). The last `dup` ref rows
+    atomics in another order, then one rounding). A gradient that `needs`
+    (for ref, lr) does not ask for must be None. The last `dup` ref rows
     never won, so they get exact zeros."""
     from refvsr_tpu_torch.ops.kernels.argmax_matmul import (
         argmax_matmul_backward, argmax_matmul_backward_plain)
     n, l_ref, d = ref.shape
-    d_ref, d_lr = argmax_matmul_backward(ref, lr, index, g)
+    d_ref, d_lr = argmax_matmul_backward(ref, lr, index, g, needs)
     d_ref_p, d_lr_p = argmax_matmul_backward_plain(ref, lr, index, g)
     torch.cuda.synchronize()
     tol = {"d_lr": 1e-6,
            "d_ref": 1e-5 if ref.dtype == torch.float32 else 2.0 ** -7}
     err, limit = {}, {}
-    for label, got, want in (("d_lr", d_lr, d_lr_p),
-                             ("d_ref", d_ref, d_ref_p)):
+    for label, got, want, need in (("d_lr", d_lr, d_lr_p, needs[1]),
+                                   ("d_ref", d_ref, d_ref_p, needs[0])):
+        check((got is not None) == need,
+              f"K2-bwd {name}: {label} given where not asked, or missing")
+        if not need:
+            continue
         check(got.shape == want.shape and got.dtype == want.dtype,
               f"K2-bwd {name}: {label} shape/dtype")
         check(_finite(got), f"K2-bwd {name}: {label} is not finite")
@@ -459,11 +533,16 @@ def k2_bwd_case(name, ref, lr, index, g, dup=0):
         limit[label] = tol[label] * float(want.float().abs().max())
         check(err[label] <= limit[label], f"K2-bwd {name}: max |kernel - "
               f"plain| of {label} {err[label]} > {limit[label]}")
-    if dup:
+    if dup and needs[0]:
         check(bool((d_ref[:, -dup:] == 0).all()),
               f"K2-bwd {name}: duplicated ref rows got a gradient")
 
-    ms = cuda_ms(lambda: argmax_matmul_backward(ref, lr, index, g))
+    def call():
+        return argmax_matmul_backward(ref, lr, index, g, needs)
+
+    ms = cuda_ms(call, iters=50)    # as for K1-bwd: mostly host work
+    dev_ms, kernel_ms = call_device_ms(
+        call, argmax_matmul_backward, KERNEL_TAGS["argmax_matmul_backward"])
     plain_ms = cuda_ms(lambda: argmax_matmul_backward_plain(ref, lr, index,
                                                             g), iters=3)
     # the library yardstick, two calls: the picked ref rows' gather and the
@@ -474,24 +553,37 @@ def k2_bwd_case(name, ref, lr, index, g, dup=0):
     acc = torch.zeros_like(ref_flat)
 
     def library():
-        ref_flat.index_select(0, rows)
-        acc.index_add_(0, rows, lr_flat)
+        if needs[1]:
+            ref_flat.index_select(0, rows)
+        if needs[0]:
+            acc.index_add_(0, rows, lr_flat)
 
-    library_ms = cuda_ms(library)
-    # bytes: the picked ref rows, lr, index and g in; d_ref and d_lr out
+    library_ms = cuda_ms(library, iters=50)
+    # bytes: index and g in; the picked ref rows in and d_lr out for d_lr;
+    # lr in and d_ref out for d_ref
     picked = int(torch.unique(rows).numel())
     es = ref.element_size()
-    nbytes = (picked * d * es + _nbytes(lr, index, g, d_ref, d_lr))
-    flops = 3 * lr.numel()
+    nbytes = _nbytes(index, g)
+    flops = 0
+    if needs[1]:
+        nbytes += picked * d * es + _nbytes(d_lr)
+        flops += lr.numel()
+    if needs[0]:
+        nbytes += _nbytes(lr, d_ref)
+        flops += 2 * lr.numel()
     b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+    lib = " + ".join(k for k, need in (("index_select", needs[1]),
+                                       ("index_add_", needs[0])) if need)
     log(f"K2-bwd {name}: ref {tuple(ref.shape)}, lr {tuple(lr.shape)} "
         f"{ref.dtype}; {picked} ref rows picked; max_abs_err "
         + ", ".join(f"{k} {err[k]:.3e} (limit {limit[k]:.3e})" for k in err)
-        + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select + "
-        f"index_add_ (two calls) {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+        + f"; call {ms:.4f} ms, device {_ms(dev_ms)} (kernel "
+        f"{_ms(kernel_ms)}), plain "
+        f"{plain_ms:.4f} ms, {lib} {library_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by})")
     return dict(case=name, max_abs_err=max(err.values()),
-                tolerance=max(limit.values()), ms=ms, plain_ms=plain_ms,
+                tolerance=max(limit.values()), ms=ms, device_ms=dev_ms,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
                 nbytes=nbytes, flops=flops, peak=torch.float32)
 
@@ -509,6 +601,15 @@ def phase_k2_backward(dev):
               f"K2-bwd {name}: a tie went to the later duplicate")
         g = torch.randn((n, l_lr), generator=gen, device=dev)
         cases.append(k2_bwd_case(name, ref, lr, index, g, dup=dup))
+        if name == "train f32":
+            # every LR row of a batch item picks one ref row: all of its
+            # reductions meet on one row of d_ref
+            one = torch.full_like(index, l_ref // 2)
+            cases.append(k2_bwd_case("train f32, one ref row takes all",
+                                     ref, lr, one, g))
+            # only lr_p requires grad: no d_ref is made
+            cases.append(k2_bwd_case("train f32, lr_p's gradient only", ref,
+                                     lr, index, g, needs=(False, True)))
         del ref, lr, index, g
     return cases
 
@@ -750,10 +851,33 @@ KERNEL_TAGS = {"warp_sample": "warp_sample_kernel",
                "argmax_matmul_backward": "argmax_matmul_backward_kernel"}
 
 
+# the backward launchers clear their f32 output (dx, d_ref) with a memset
+# on the stream just before the kernel
+CLEARED = ("warp_sample_backward", "argmax_matmul_backward")
+
+
+def _clears(prof, tag):
+    """(ms, count) of the memsets that come just before a launch of the
+    kernel `tag` on its stream in a finished torch.profiler trace."""
+    dev = sorted((ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda ev: ev.time_range.start)
+    last, ms, n = {}, 0.0, 0
+    for ev in dev:
+        stream = getattr(ev, "device_resource_id", None)
+        prev = last.get(stream)
+        if tag in ev.name and prev is not None and "Memset" in prev.name:
+            ms += prev.time_range.elapsed_us() / 1e3
+            n += 1
+        last[stream] = ev
+    return ms, n
+
+
 def device_profile(prof, names, what, wall_ms, card, top=0):
     """Device ms and launches of the kernels `names` in a finished
-    torch.profiler trace, the device's busy time and idle share, and
-    optionally the `top` kernels by device time."""
+    torch.profiler trace (a backward kernel's with its launcher's clears),
+    the device's busy time and idle share, and optionally the `top` kernels
+    by device time."""
     events = [ev for ev in prof.key_averages()
               if ev.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(ev.self_device_time_total for ev in events) / 1e3
@@ -763,11 +887,18 @@ def device_profile(prof, names, what, wall_ms, card, top=0):
         ms = sum(ev.self_device_time_total for ev in mine) / 1e3
         n = sum(ev.count for ev in mine)
         check(ms > 0 and n > 0, f"{what}: no device time for {name}")
-        out[name] = dict(ms=ms, launches=n)
+        out[name] = dict(ms=ms, launches=n, kernel_ms=ms)
+        if name in CLEARED:
+            clear_ms, cleared = _clears(prof, KERNEL_TAGS[name])
+            check(cleared == n, f"{what}: {cleared} clears found before "
+                  f"{n} launches of {name}")
+            out[name].update(ms=ms + clear_ms, clear_ms=clear_ms)
     idle = max(0.0, 1 - busy / wall_ms)
     log(f"profiled {what}: host {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
         f"idle share {idle:.3f}; "
         + "; ".join(f"{k} {v['ms']:.4f} ms in {v['launches']} launches"
+                    + (f" (kernel {v['kernel_ms']:.4f}, clears "
+                       f"{v['clear_ms']:.4f})" if "clear_ms" in v else "")
                     for k, v in out.items()) + f"  [{card}]")
     if top:
         log(f"{'ms':>10} {'share':>6} {'calls':>6}  kernel ({what})")
@@ -1036,7 +1167,7 @@ def path_cases(stream_calls, first_calls, train_calls):
         return k1_bwd_case(label, *args, **kw)
 
     def k2_bwd(label, args, kw):
-        return k2_bwd_case(label, *args)
+        return k2_bwd_case(label, *args, **kw)
 
     def run(fn, where, calls):
         return [fn(f"{where} call {i}: {_shape(a[0])}, {_shape(a[1])}", a, kw)
@@ -1073,9 +1204,9 @@ KERNEL_META = {
         replaces="refvsr_tpu/ops/pallas/warp_select.py:363",
         tolerance="1e-5 (f32), 2**-7 (bf16) of the f32 plain backward's "
                   "max |dx|, |dflow|",
-        ms_is="device time of its launches in one full-width training step "
-              "(torch.profiler); plain_ms, library_ms "
-              "(aten.grid_sampler_2d_backward) and bound_ms are for the "
+        ms_is="device time of its launches and of its launcher's clears "
+              "of dx in one full-width training step (torch.profiler); "
+              "plain_ms, library_ms (aten.grid_sampler_2d_backward) and bound_ms are for the "
               "inputs that step gave it, summed over its launches"),
     "argmax_matmul": dict(
         id="K2", source="refvsr_tpu_torch/csrc/argmax_matmul.cu",
@@ -1090,8 +1221,9 @@ KERNEL_META = {
         replaces="refvsr_tpu/ops/pallas/matching_kernel.py:118",
         tolerance="d_lr 1e-6, d_ref 1e-5 (f32) or 2**-7 (bf16) of the plain "
                   "backward's max",
-        ms_is="device time of its launch in one full-width training step "
-              "(torch.profiler); plain_ms, library_ms (index_select + "
+        ms_is="device time of its launch and of its launcher's clear of "
+              "d_ref in one full-width training step (torch.profiler); "
+              "plain_ms, library_ms (index_select + "
               "index_add_, two calls) and bound_ms are for the inputs that "
               "step gave it"),
     "conv3x3_bias": dict(
@@ -1149,7 +1281,8 @@ def kernels_line(synthetic, on_path, in_path, in_step, launches, bench):
         cases = synthetic[name] + counted + rest
         kernels.append(dict(
             entry, max_abs_err=max(c["max_abs_err"] for c in cases),
-            ms=ms["ms"], ms_train_step=in_step[name]["ms"],
+            ms=ms["ms"], kernel_ms=ms["kernel_ms"],
+            ms_train_step=in_step[name]["ms"],
             isolated_ms=sum(c["ms"] for c in counted),
             plain_ms=sum(c["plain_ms"] for c in counted),
             library_ms=None if None in lib else sum(lib),

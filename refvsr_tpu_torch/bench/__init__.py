@@ -6,7 +6,11 @@
 - ``python -m refvsr_tpu_torch.bench.microbench_gather``: K4, the row
   gather, against ``torch.index_select``.
 
-Each module's ``run(...)`` returns its numbers as a dict. Times are taken
+and, on the card only, ``python -m refvsr_tpu_torch.bench.probe_backward``:
+variants of K1's backward kernel, the L2's reduction rates and the backward
+wrappers' host work, the measurements behind the backward kernels' design.
+
+Each microbenchmark module's ``run(...)`` returns its numbers as a dict. Times are taken
 on the card only, by CUDA events; with ``--device cpu`` an entry point runs
 the plain versions and measures nothing.
 """

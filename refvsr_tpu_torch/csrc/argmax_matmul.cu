@@ -71,12 +71,23 @@
 //
 // Backward (replaces the custom VJP _pallas_argmax_bwd of the same file):
 // conf = <ref[index[l]], lr[l]>, so the cotangent g of conf reaches only the
-// picked ref row. One thread per (b, l, j) element, neighbouring threads on
-// neighbouring j: d_lr[b,l,j] = g[b,l] * ref[b, index[b,l], j] (f32, rounded
-// once to the input type), and g[b,l] * lr[b,l,j] is added with an f32
-// atomicAdd into d_ref[b, index[b,l], j] (an f32 buffer the caller zeroes
-// and casts): many LR rows may pick the same ref row. Bound by bytes (three
-// operations per element); the atomics' order is the only nondeterminism.
+// picked ref row: d_lr[b,l,:] = g[b,l] * ref[b, index[b,l], :] (f32, rounded
+// once to the input type), and g[b,l] * lr[b,l,:] is added into
+// d_ref[b, index[b,l], :] (an f32 buffer, cast by the caller): many LR rows
+// may pick the same ref row. Bound by bytes: lr, the picked ref rows, index
+// and g in, d_lr and d_ref out, three operations per element. Design: a
+// group of lanes per LR row (D / VEC of them, 16 bytes each: 36 in f32 and
+// 18 in bf16 at D = 144; blockIdx.y the batch item, so no index is
+// divided), which reads its row's index and g once, loads lr and the picked
+// ref row in 16-byte vectors, stores d_lr in 16-byte vectors and adds into
+// d_ref with float4 reductions (atomicAdd on float4, compute capability
+// 9.x): 36 global reductions per row instead of 144. Contention only where
+// many LR rows pick one ref row; the reductions' order is the only
+// nondeterminism. Either gradient may be skipped. D is a multiple of 16
+// and every row 16-byte aligned, as the forward requires of the tensors it
+// saves for this pass. The launcher clears d_ref with cudaMemsetAsync on
+// the stream, which costs the host less than a torch.zeros call (PERF.md);
+// the clear is a pass over all of d_ref, part of this function's work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -569,22 +580,45 @@ int launch_kernel(void (*kernel)(const T*, const T*, float*, int*, int, int,
   return (int)cudaGetLastError();
 }
 
+// Backward: a group of blockDim.x lanes per LR row (blockDim.y rows a
+// block, blockIdx.y the batch item), lane q taking the row's 16-byte chunks
+// q, q + blockDim.x, ... (VEC elements each). d_lr and d_ref may each be
+// null to skip it. D is a multiple of VEC and every row 16-byte aligned.
 template <typename T>
 __global__ void __launch_bounds__(256) argmax_matmul_backward_kernel(
     const T* __restrict__ ref, const T* __restrict__ lr,
     const int* __restrict__ index, const float* __restrict__ g,
     float* __restrict__ d_ref, T* __restrict__ d_lr, int l_ref, int l_lr,
-    int d, long long total) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const long long row = e / d;             // b * l_lr + l
-    const int j = (int)(e - row * d);
-    const long long b = row / l_lr;
-    const long long src = (b * l_ref + index[row]) * d + j;
-    const float gv = g[row];
-    d_lr[e] = from_f32<T>(gv * to_f32(ref[src]));
-    atomicAdd(d_ref + src, gv * to_f32(lr[e]));
+    int d) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int l = blockIdx.x * blockDim.y + threadIdx.y;
+  if (l >= l_lr) return;
+  const long long row = (long long)blockIdx.y * l_lr + l;
+  const int pick = __ldg(index + row);
+  const float gv = __ldg(g + row);
+  const T* ref_row = ref + ((long long)blockIdx.y * l_ref + pick) * d;
+  float* d_ref_row = d_ref + ((long long)blockIdx.y * l_ref + pick) * d;
+  const T* lr_row = lr + row * d;
+  T* d_lr_row = d_lr + row * d;
+  for (int j = threadIdx.x * VEC; j < d; j += blockDim.x * VEC) {
+    if (d_lr != nullptr) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(ref_row + j));
+      const T* e = reinterpret_cast<const T*>(&raw);
+      uint4 out;
+      T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o[i] = from_f32<T>(gv * to_f32(e[i]));
+      *reinterpret_cast<uint4*>(d_lr_row + j) = out;
+    }
+    if (d_ref != nullptr) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(lr_row + j));
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int q = 0; q < VEC; q += 4)
+        atomicAdd(reinterpret_cast<float4*>(d_ref_row + j + q),
+                  make_float4(gv * to_f32(e[q]), gv * to_f32(e[q + 1]),
+                              gv * to_f32(e[q + 2]), gv * to_f32(e[q + 3])));
+    }
   }
 }
 
@@ -592,15 +626,26 @@ template <typename T>
 int launch_backward(const void* ref, const void* lr, const void* index,
                     const void* g, void* d_ref, void* d_lr, int b, int l_ref,
                     int l_lr, int d, cudaStream_t stream) {
-  if (b <= 0 || l_lr <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)b * l_lr * d;
-  const long long want = (total + 255) / 256;
-  const unsigned blocks = (unsigned)(want < (1LL << 20) ? want : (1LL << 20));
-  argmax_matmul_backward_kernel<T><<<blocks, 256, 0, stream>>>(
+  constexpr int VEC = 16 / sizeof(T);
+  if (b <= 0 || b > 65535 || l_lr <= 0 || l_ref <= 0 || d <= 0 ||
+      d % 16 != 0 || (d_ref == nullptr && d_lr == nullptr) ||
+      (reinterpret_cast<uintptr_t>(ref) | reinterpret_cast<uintptr_t>(lr) |
+       reinterpret_cast<uintptr_t>(d_ref) |
+       reinterpret_cast<uintptr_t>(d_lr)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (d_ref != nullptr) {
+    const cudaError_t e = cudaMemsetAsync(
+        d_ref, 0, (size_t)b * l_ref * d * sizeof(float), stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int chunks = d / VEC;
+  const int lanes = chunks < 256 ? chunks : 256;
+  const dim3 block((unsigned)lanes, (unsigned)(256 / lanes));
+  const dim3 grid((unsigned)((l_lr + block.y - 1) / block.y), (unsigned)b);
+  argmax_matmul_backward_kernel<T><<<grid, block, 0, stream>>>(
       static_cast<const T*>(ref), static_cast<const T*>(lr),
       static_cast<const int*>(index), static_cast<const float*>(g),
-      static_cast<float*>(d_ref), static_cast<T*>(d_lr), l_ref, l_lr, d,
-      total);
+      static_cast<float*>(d_ref), static_cast<T*>(d_lr), l_ref, l_lr, d);
   return (int)cudaGetLastError();
 }
 
@@ -646,8 +691,10 @@ extern "C" int argmax_matmul_launch(const void* ref, const void* lr,
 // Backward of argmax_matmul_launch. ref (b, l_ref, d), lr (b, l_lr, d) and
 // d_lr (b, l_lr, d) share one dtype (codes as above); index (b, l_lr) int32
 // and g (b, l_lr) f32 are the forward's index and conf's gradient; d_ref is
-// an f32 (b, l_ref, d) buffer that the caller zeroes. Returns a cudaError_t
-// value (0 = success).
+// an f32 (b, l_ref, d) buffer, which this launcher clears on the stream
+// before the kernel. Either d_ref or d_lr may be null to skip that
+// gradient. d a multiple of 16 and every pointer 16-byte aligned, else
+// cudaErrorInvalidValue. Returns a cudaError_t value (0 = success).
 extern "C" int argmax_matmul_backward_launch(const void* ref, const void* lr,
                                              const void* index, const void* g,
                                              void* d_ref, void* d_lr, int b,

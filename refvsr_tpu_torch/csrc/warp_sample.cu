@@ -14,18 +14,23 @@
 // card's ~295 operations per byte, so the floor is moving x in, the flow in
 // and the output out once over device memory (3.35 TB/s). The backward pass
 // is the same gather run as a scatter: g and the flow in, dx out (and, when
-// the flow's gradient is asked for, x in and dflow out).
+// the flow's gradient is asked for, x in and dflow out). What holds it back
+// is the scatter into dx: four corner reductions per element of g, which
+// the L2 applies at 2.4-3.1 TB/s of f32 data even when each warp's
+// reductions cover whole lines (measured on the H100, PERF.md), so every
+// reduction not issued is time saved.
 //
 // Design: the TPU kernel's band plan, 8-aligned anchors, pre-rotate and
 // fallback exist because TPU row gathers are bound by row count; none of
-// that carries over. pixel_taps evaluates warp_coords for one output pixel
-// in f32 (same expression and order as the Python warp_coords, with the
-// round-to-nearest intrinsics so nvcc does not contract it into FMAs),
+// that carries over. pixel_corners evaluates warp_coords for one output
+// pixel in f32 (same expression and order as the Python warp_coords, with
+// the round-to-nearest intrinsics so nvcc does not contract it into FMAs),
 // decides liveness BEFORE any float->int conversion (a NaN anchor fails
-// every comparison and is dead), and returns the four corner offsets and
-// f32 weights (-1 for a corner outside the image); forward and backward
-// share it, so the backward pass sees exactly the forward's corners and
-// weights.
+// every comparison and is dead), and returns the anchor, the mask of inside
+// corners and their f32 weights (0 for a corner outside the image);
+// pixel_taps turns them into element offsets for the forward. Forward and
+// backward share it, so the backward pass sees exactly the forward's
+// corners and weights.
 // Forward: one thread per (output pixel, group of 16 bytes of channels: 8
 // bf16 or 4 f32). The block is (groups, pixels): threadIdx.x is the group,
 // threadIdx.y the pixel within a run of one output row, blockIdx.y the row
@@ -45,13 +50,38 @@
 // 98-byte pixels are aligned to 2 bytes only, so it takes the generic
 // variant, whose loads L1 merges across the group's threads. The four
 // products are summed in f32 in corner order and rounded once to the
-// output type. Backward: each element scatters weight * g into its inside
-// corners of an f32 dx with atomicAdd (several output points share a
-// source pixel, so atomics decide the summation order); for dflow
-// each element adds g * d(value)/d(tx, ty) into per-pixel f32 sums in shared
-// memory, and one thread per pixel scales them by d(sx)/d(fx) = 0.5 * w *
-// 2/(w-1) (and the same for y) in the order autograd applies the chain rule.
-// Dead points and all-outside corners give exact zeros in both directions.
+// output type.
+//
+// Backward: fewer reductions by summing in registers first. A thread takes
+// a run of RUN = 8 output pixels of one row for one 16-byte channel group
+// (block (lanes, runs): `lanes` is the power of two >= C / VEC, at most 32,
+// lane j taking the groups j, j + lanes, ...; no index is divided). It
+// computes each pixel's taps (pixel_corners, as the forward: the same
+// corners and weights), loads 16 bytes of g where C and the pointers allow,
+// and adds weight * g into a 2 x 2 window of source pixels held in
+// registers: the same anchor as the last pixel adds all four corners there,
+// an anchor one column to the right reduces the window's left column into
+// dx and shifts, any other anchor reduces the whole window and restarts it
+// there. Along a row of smooth flow that is about two reductions a pixel
+// instead of four at one resolution, fewer on the 2x grid (neighbouring
+// output pixels often share an anchor); scattered flows fall back to four.
+// A reduction is one float4 atomicAdd per 4 channels (compute capability
+// 9.x) into an f32 dx whose pitch is a multiple of 4 floats (the wrapper
+// pads C = 49 to 52; one f32 atomicAdd per channel ran 3.2-3.9x slower,
+// bench/probe_backward.py); the launcher clears dx with cudaMemsetAsync.
+// dflow: each lane sums g * d(value)/d(tx, ty) over its channels, a run's
+// lanes (one warp) add them with xor shuffles in a fixed tree, and lane 0
+// writes each pixel's dflow once, scaled by d(sx)/d(fx) = 0.5 * w *
+// 2/(w-1) (and the same for y) in the order autograd applies the chain
+// rule: no memory word is shared by a pixel's threads. Tried and dropped
+// (PERF.md): a shared-memory box of each 16 x 16-pixel tile's source
+// footprint, accumulated with shared-memory atomics, which ran slower than
+// the float4 reductions alone (Hopper has no native f32 add for shared
+// memory). Offsets are 32-bit when every index fits, else 64-bit, as in the
+// forward: a 64-bit build at every size ran 1-5% slower at the training
+// step's shapes (bench/probe_backward.py). The clear of dx is a pass over
+// all of it, part of this function's work. Dead points and all-outside
+// corners give exact zeros in both directions.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -59,8 +89,8 @@
 
 namespace {
 
-constexpr int PIX = 64;       // output pixels per block (backward)
 constexpr int THREADS = 256;
+constexpr int RUN = 8;  // backward: output pixels of a row per thread
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -80,15 +110,17 @@ struct Geometry {
   float gsx, fsx, gsy, fsy;  // warp_coords' grid and flow scales
 };
 
-// Corner offsets (element index of the corner's channel 0, -1 outside the
-// image) and weights of output pixel p = (b, oy, ox), and its fractional
-// coordinates; returns whether the point is live.
+// Anchor (xi, yi) of output pixel p = (b, oy, ox), its corner weights (0
+// for a corner outside the image), the mask of its inside corners (bit k for
+// corner k: (yi, xi), (yi, xi + 1), (yi + 1, xi), (yi + 1, xi + 1)) and its
+// fractional coordinates; returns whether the point is live.
 template <typename T, typename Idx>
-__device__ __forceinline__ bool pixel_taps(const T* __restrict__ flow, Idx p,
-                                           int b, int oy, int ox,
-                                           const Geometry& g, Idx off[4],
-                                           float wt[4], float* tx_out,
-                                           float* ty_out) {
+__device__ __forceinline__ bool pixel_corners(const T* __restrict__ flow,
+                                              Idx p, int oy, int ox,
+                                              const Geometry& g, int* xi_out,
+                                              int* yi_out, float wt[4],
+                                              unsigned* inside,
+                                              float* tx_out, float* ty_out) {
   const float fx = to_f32(flow[2 * p]);
   const float fy = to_f32(flow[2 * p + 1]);
   // xn = gx * gsx + fx * fsx - 1 ; sx = ((xn + 1) * w - 1) * 0.5
@@ -105,10 +137,10 @@ __device__ __forceinline__ bool pixel_taps(const T* __restrict__ flow, Idx p,
   const bool live = (x0 >= -1.0f) && (x0 <= (float)(g.w - 1)) &&
                     (y0 >= -1.0f) && (y0 <= (float)(g.h - 1));
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    off[k] = -1;
-    wt[k] = 0.0f;
-  }
+  for (int k = 0; k < 4; ++k) wt[k] = 0.0f;
+  *inside = 0u;
+  *xi_out = 0;
+  *yi_out = 0;
   *tx_out = 0.0f;
   *ty_out = 0.0f;
   if (!live) return false;
@@ -118,18 +150,40 @@ __device__ __forceinline__ bool pixel_taps(const T* __restrict__ flow, Idx p,
   const int yi = (int)y0;
   const float cw[4] = {(1.0f - ty) * (1.0f - tx), (1.0f - ty) * tx,
                        ty * (1.0f - tx), ty * tx};
-  const int cy[4] = {yi, yi, yi + 1, yi + 1};
-  const int cx[4] = {xi, xi + 1, xi, xi + 1};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    if (cy[k] >= 0 && cy[k] < g.h && cx[k] >= 0 && cx[k] < g.w) {
-      off[k] = (((Idx)b * g.h + cy[k]) * g.w + cx[k]) * g.c;
+    const int cy = yi + (k >> 1);
+    const int cx = xi + (k & 1);
+    if (cy >= 0 && cy < g.h && cx >= 0 && cx < g.w) {
+      *inside |= 1u << k;
       wt[k] = cw[k];
     }
   }
+  *xi_out = xi;
+  *yi_out = yi;
   *tx_out = tx;
   *ty_out = ty;
   return true;
+}
+
+// The same as element offsets of the corners' channel 0 (-1 outside the
+// image), for the forward kernel.
+template <typename T, typename Idx>
+__device__ __forceinline__ bool pixel_taps(const T* __restrict__ flow, Idx p,
+                                           int b, int oy, int ox,
+                                           const Geometry& g, Idx off[4],
+                                           float wt[4], float* tx_out,
+                                           float* ty_out) {
+  int xi, yi;
+  unsigned inside;
+  const bool live = pixel_corners<T, Idx>(flow, p, oy, ox, g, &xi, &yi, wt,
+                                          &inside, tx_out, ty_out);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    off[k] = (inside >> k) & 1u
+                 ? (((Idx)b * g.h + yi + (k >> 1)) * g.w + xi + (k & 1)) * g.c
+                 : (Idx)-1;
+  return live;
 }
 
 // One thread per (output pixel, 16-byte channel group); see the head note.
@@ -182,90 +236,186 @@ __global__ void __launch_bounds__(THREADS) warp_sample_kernel(
   }
 }
 
-// dx (f32, zeroed by the caller) += the scatter of g; dflow, when not null,
-// gets the flow's gradient (x is read only then).
-template <typename T>
+// The channels [ch, ch + VEC) of one pixel's row `src` as f32, zeros past C:
+// one 16-byte load when kVec (C a multiple of VEC, the row 16-byte aligned).
+template <typename T, bool kVec>
+__device__ __forceinline__ void load_group(const T* __restrict__ src, int ch,
+                                           int c, float (&v)[16 / sizeof(T)]) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (kVec) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = to_f32(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = ch + i < c ? to_f32(src[i]) : 0.0f;
+  }
+}
+
+// dst[i] += v[i] for the group's channels, one float4 reduction per 4 of
+// them: dx's pitch is a multiple of 4 floats, so a float4 that starts below
+// C lies inside the pixel's row (v is zero past C).
+template <int VEC>
+__device__ __forceinline__ void reduce_group(float* dst, const float (&v)[VEC],
+                                             int ch, int c) {
+#pragma unroll
+  for (int q = 0; q < VEC; q += 4)
+    if (ch + q < c)
+      atomicAdd(reinterpret_cast<float4*>(dst + q),
+                make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]));
+}
+
+// A 2 x 2 window of source pixels, rows (ya, ya + 1) x columns (xa, xa + 1),
+// held in registers for one channel group: slot s is row s >> 1, column
+// s & 1, as corner k of a pixel anchored at (xa, ya) is. `used` marks the
+// slots that received an inside corner; only they are ever reduced into dx.
+template <int VEC>
+struct Window {
+  float acc[4][VEC];
+  unsigned used;
+  int xa, ya;
+
+  __device__ __forceinline__ void clear(int s) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[s][i] = 0.0f;
+  }
+  template <typename Idx>
+  __device__ __forceinline__ void flush(int s, float* dx, Idx row0, int w,
+                                        int ldx, int ch, int c) {
+    if ((used >> s) & 1u)
+      reduce_group<VEC>(
+          dx + ((row0 + ya + (s >> 1)) * w + xa + (s & 1)) * ldx + ch,
+          acc[s], ch, c);
+    clear(s);
+  }
+};
+
+// Backward: dx (f32, pitch ldx floats per source pixel, cleared by the
+// launcher; null to skip) += the scatter of g; dflow, when not null, gets
+// the flow's gradient (x is read only then). Block (lanes, runs): lane
+// threadIdx.x takes the channel groups lane, lane + lanes, ... of a run of
+// RUN output pixels of row blockIdx.y, batch item blockIdx.z; see the head
+// note.
+template <typename T, typename Idx, bool kVec, bool kDflow>
 __global__ void __launch_bounds__(THREADS) warp_sample_backward_kernel(
     const T* __restrict__ x, const T* __restrict__ flow,
     const T* __restrict__ g, float* __restrict__ dx, T* __restrict__ dflow,
-    Geometry geo) {
-  __shared__ long long s_off[PIX][4];
-  __shared__ float s_wt[PIX][4];
-  __shared__ float s_t[PIX][2];     // tx, ty of a live point
-  __shared__ float s_d[PIX][2];     // sums of g * d(value)/d(tx), d(ty)
-  __shared__ int s_live[PIX];
-
-  const long long p0 = (long long)blockIdx.x * PIX;
-  const int t = threadIdx.x;
-  if (t < PIX) {
-    const long long p = p0 + t;
-    long long off[4] = {-1, -1, -1, -1};
-    float wt[4] = {0.f, 0.f, 0.f, 0.f};
-    float tx = 0.f, ty = 0.f;
-    bool live = false;
-    if (p < geo.npix) {
-      const long long hw_o = (long long)geo.ho * geo.wo;
-      const long long b = p / hw_o;
-      const long long rem = p - b * hw_o;
-      const int oy = (int)(rem / geo.wo);
-      const int ox = (int)(rem - (long long)oy * geo.wo);
-      live = pixel_taps<T, long long>(flow, p, (int)b, oy, ox, geo, off, wt,
-                                      &tx, &ty);
-    }
+    Geometry geo, int ldx) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int lanes = blockDim.x;
+  const int lane = threadIdx.x;
+  const int ox0 = (blockIdx.x * blockDim.y + threadIdx.y) * RUN;
+  const int oy = blockIdx.y;
+  const int b = blockIdx.z;
+  const Idx p0 = ((Idx)b * geo.ho + oy) * geo.wo + ox0;
+  const Idx row0 = (Idx)b * geo.h;  // source row of batch item b
+  const int groups = (geo.c + VEC - 1) / VEC;
+  float d0[RUN], d1[RUN];  // this lane's part of g * d(value)/d(tx, ty)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      s_off[t][k] = off[k];
-      s_wt[t][k] = wt[k];
-    }
-    s_t[t][0] = tx;
-    s_t[t][1] = ty;
-    s_d[t][0] = 0.0f;
-    s_d[t][1] = 0.0f;
-    s_live[t] = live ? 1 : 0;
+  for (int i = 0; i < RUN; ++i) {
+    d0[i] = 0.0f;
+    d1[i] = 0.0f;
   }
-  __syncthreads();
-
-  const int c = geo.c;
-  const long long remaining = geo.npix - p0;
-  const int npx = remaining < PIX ? (int)remaining : PIX;
-  const int total = npx * c;
-  const T* g_blk = g + p0 * c;
-  for (int i = t; i < total; i += THREADS) {
-    const int q = i / c;
-    const int ch = i - q * c;
-    if (!s_live[q]) continue;
-    const float gv = to_f32(g_blk[i]);
+  for (int grp = lane; grp < groups && ox0 < geo.wo; grp += lanes) {
+    const int ch = grp * VEC;
+    Window<VEC> win;
+    win.used = 0u;
+    win.xa = 0;
+    win.ya = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const long long o = s_off[q][k];
-      if (o >= 0) atomicAdd(dx + o + ch, s_wt[q][k] * gv);
-    }
-    if (dflow != nullptr) {
-      float v[4];
+    for (int s = 0; s < 4; ++s) win.clear(s);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const long long o = s_off[q][k];
-        v[k] = o >= 0 ? to_f32(x[o + ch]) : 0.0f;
+    for (int i = 0; i < RUN; ++i) {
+      const int ox = ox0 + i;
+      int xi, yi;
+      float wt[4], tx, ty;
+      unsigned inside;
+      if (ox >= geo.wo ||
+          !pixel_corners<T, Idx>(flow, p0 + i, oy, ox, geo, &xi, &yi, wt,
+                                 &inside, &tx, &ty))
+        continue;
+      float gv[VEC];
+      load_group<T, kVec>(g + (p0 + i) * geo.c + ch, ch, geo.c, gv);
+      if (dx != nullptr) {
+        if (win.used && yi == win.ya && xi == win.xa + 1) {
+          // one column to the right: reduce the left column, shift
+          win.flush(0, dx, row0, geo.w, ldx, ch, geo.c);
+          win.flush(2, dx, row0, geo.w, ldx, ch, geo.c);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            win.acc[0][e] = win.acc[1][e];
+            win.acc[2][e] = win.acc[3][e];
+          }
+          win.clear(1);
+          win.clear(3);
+          win.used = (win.used >> 1) & 5u;
+          win.xa = xi;
+        } else if (!win.used || yi != win.ya || xi != win.xa) {
+          // elsewhere: reduce the whole window, start it at this anchor
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            win.flush(s, dx, row0, geo.w, ldx, ch, geo.c);
+          win.used = 0u;
+          win.xa = xi;
+          win.ya = yi;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            win.acc[k][e] = fmaf(wt[k], gv[e], win.acc[k][e]);
+        win.used |= inside;
       }
-      const float tx = s_t[q][0];
-      const float ty = s_t[q][1];
-      atomicAdd(&s_d[q][0],
-                gv * ((1.0f - ty) * (v[1] - v[0]) + ty * (v[3] - v[2])));
-      atomicAdd(&s_d[q][1],
-                gv * ((1.0f - tx) * (v[2] - v[0]) + tx * (v[3] - v[1])));
+      if (kDflow) {
+        float v[4][VEC];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if ((inside >> k) & 1u) {
+            load_group<T, kVec>(
+                x + (row0 + yi + (k >> 1)) * geo.w * geo.c +
+                    (Idx)(xi + (k & 1)) * geo.c + ch,
+                ch, geo.c, v[k]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) v[k][e] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          d0[i] += gv[e] * ((1.0f - ty) * (v[1][e] - v[0][e]) +
+                            ty * (v[3][e] - v[2][e]));
+          d1[i] += gv[e] * ((1.0f - tx) * (v[2][e] - v[0][e]) +
+                            tx * (v[3][e] - v[1][e]));
+        }
+      }
+    }
+    if (dx != nullptr) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        win.flush(s, dx, row0, geo.w, ldx, ch, geo.c);
     }
   }
-  if (dflow == nullptr) return;
-  __syncthreads();
-  if (t < npx) {
-    const long long p = p0 + t;
+  if (!kDflow) return;
+  // each pixel's lanes summed in a fixed tree (every lane of the warp takes
+  // part); lane 0 writes the pixel's dflow once
+#pragma unroll
+  for (int i = 0; i < RUN; ++i) {
+    for (int s = lanes >> 1; s > 0; s >>= 1) {
+      d0[i] += __shfl_xor_sync(0xffffffffu, d0[i], s);
+      d1[i] += __shfl_xor_sync(0xffffffffu, d1[i], s);
+    }
+  }
+  if (lane != 0) return;
+  // a dead point was skipped above, so its sums are exact zeros
+#pragma unroll
+  for (int i = 0; i < RUN; ++i) {
+    if (ox0 + i >= geo.wo) break;
     // d(sx)/d(fx) applied as autograd does: ((d * 0.5) * w) * fsx
-    const float dfx = __fmul_rn(
-        __fmul_rn(__fmul_rn(s_d[t][0], 0.5f), (float)geo.w), geo.fsx);
-    const float dfy = __fmul_rn(
-        __fmul_rn(__fmul_rn(s_d[t][1], 0.5f), (float)geo.h), geo.fsy);
-    dflow[2 * p] = from_f32<T>(s_live[t] ? dfx : 0.0f);
-    dflow[2 * p + 1] = from_f32<T>(s_live[t] ? dfy : 0.0f);
+    dflow[2 * (p0 + i)] = from_f32<T>(__fmul_rn(
+        __fmul_rn(__fmul_rn(d0[i], 0.5f), (float)geo.w), geo.fsx));
+    dflow[2 * (p0 + i) + 1] = from_f32<T>(__fmul_rn(
+        __fmul_rn(__fmul_rn(d1[i], 0.5f), (float)geo.h), geo.fsy));
   }
 }
 
@@ -283,10 +433,6 @@ Geometry make_geometry(int n, int h, int w, int c, int ho, int wo) {
   g.gsy = (float)(2.0 / (double)(ho - 1 > 1 ? ho - 1 : 1));
   g.fsy = (float)(2.0 / (double)(h - 1 > 1 ? h - 1 : 1));
   return g;
-}
-
-unsigned blocks_for(const Geometry& g) {
-  return (unsigned)((g.npix + PIX - 1) / PIX);
 }
 
 template <typename T, typename Idx, bool kVec>
@@ -326,15 +472,71 @@ int launch(const void* x, const void* flow, void* out, int n, int h, int w,
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename Idx, bool kVec, bool kDflow>
+void launch_backward_as(const T* x, const T* flow, const T* g, float* dx,
+                        T* dflow, const Geometry& geo, int n, int ldx,
+                        dim3 block, cudaStream_t stream) {
+  const unsigned px = block.y * RUN;  // output pixels of a row per block
+  const dim3 grid((unsigned)((geo.wo + px - 1) / px), (unsigned)geo.ho,
+                  (unsigned)n);
+  warp_sample_backward_kernel<T, Idx, kVec, kDflow>
+      <<<grid, block, 0, stream>>>(x, flow, g, dx, dflow, geo, ldx);
+}
+
+template <typename T, typename Idx>
+void launch_backward_idx(const T* x, const T* flow, const T* g, float* dx,
+                         T* dflow, const Geometry& geo, int n, int ldx,
+                         dim3 block, bool vec, cudaStream_t s) {
+  if (vec && dflow != nullptr)
+    launch_backward_as<T, Idx, true, true>(x, flow, g, dx, dflow, geo, n,
+                                           ldx, block, s);
+  else if (vec)
+    launch_backward_as<T, Idx, true, false>(x, flow, g, dx, dflow, geo, n,
+                                            ldx, block, s);
+  else if (dflow != nullptr)
+    launch_backward_as<T, Idx, false, true>(x, flow, g, dx, dflow, geo, n,
+                                            ldx, block, s);
+  else
+    launch_backward_as<T, Idx, false, false>(x, flow, g, dx, dflow, geo, n,
+                                             ldx, block, s);
+}
+
 template <typename T>
 int launch_backward(const void* x, const void* flow, const void* g,
                     void* dx, void* dflow, int n, int h, int w, int c, int ho,
-                    int wo, cudaStream_t stream) {
+                    int wo, int ldx, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (n <= 0 || n > 65535 || ho <= 0 || ho > 65535 || wo <= 0 || c <= 0 ||
+      ldx < c || ldx % 4 != 0 || reinterpret_cast<uintptr_t>(dx) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (dx != nullptr) {
+    const cudaError_t e = cudaMemsetAsync(
+        dx, 0, (size_t)n * h * w * ldx * sizeof(float), stream);
+    if (e != cudaSuccess) return (int)e;
+  }
   const Geometry geo = make_geometry(n, h, w, c, ho, wo);
-  warp_sample_backward_kernel<T><<<blocks_for(geo), THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(flow),
-      static_cast<const T*>(g), static_cast<float*>(dx),
-      static_cast<T*>(dflow), geo);
+  // lanes per run: the power of two >= the channel groups, at most 32, so
+  // that a run's lanes lie in one warp for the dflow shuffles
+  const int groups = (c + VEC - 1) / VEC;
+  int lanes = 1;
+  while (lanes < 32 && lanes < groups) lanes *= 2;
+  const dim3 block((unsigned)lanes, (unsigned)(THREADS / lanes));
+  const bool vec = c % VEC == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool narrow = (long long)n * h * w * ldx < (1LL << 31) &&
+                      geo.npix * (c > 2 ? c : 2) < (1LL << 31);
+  const T* xt = static_cast<const T*>(x);
+  const T* ft = static_cast<const T*>(flow);
+  const T* gt = static_cast<const T*>(g);
+  float* dxt = static_cast<float*>(dx);
+  T* dft = static_cast<T*>(dflow);
+  if (narrow)
+    launch_backward_idx<T, int>(xt, ft, gt, dxt, dft, geo, n, ldx, block,
+                                vec, stream);
+  else
+    launch_backward_idx<T, long long>(xt, ft, gt, dxt, dft, geo, n, ldx,
+                                      block, vec, stream);
   return (int)cudaGetLastError();
 }
 
@@ -354,23 +556,28 @@ extern "C" int warp_sample_launch(const void* x, const void* flow, void* out,
 }
 
 // Backward of warp_sample_launch. x, flow, g (the output's gradient,
-// (n, ho, wo, c)) and dflow share one dtype (codes as above); dx is an f32
-// (n, h, w, c) buffer that the caller zeroes. dflow may be null to skip the
-// flow's gradient; x is read only for dflow and may be null without it.
-// Returns cudaGetLastError().
+// (n, ho, wo, c)) and dflow share one dtype (codes as above). dx is an f32
+// (n, h, w, ldx) buffer, 16-byte aligned (ldx >= c floats per source pixel,
+// a multiple of 4; channels c.. of a pixel are padding that may receive
+// zeros), which this launcher clears on the stream before the kernel; null
+// to skip it. dflow may be null to skip
+// the flow's gradient; x is read only for dflow and may be null without it.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments it
+// does not take.
 extern "C" int warp_sample_backward_launch(const void* x, const void* flow,
                                            const void* g, void* dx,
                                            void* dflow, int n, int h, int w,
-                                           int c, int ho, int wo, int dtype,
-                                           void* stream) {
+                                           int c, int ho, int wo, int ldx,
+                                           int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dx == nullptr || (dflow != nullptr && x == nullptr))
+  if ((dx == nullptr && dflow == nullptr) ||
+      (dflow != nullptr && x == nullptr))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_backward<float>(x, flow, g, dx, dflow, n, h, w, c, ho, wo,
-                                  s);
+                                  ldx, s);
   if (dtype == 1)
     return launch_backward<__nv_bfloat16>(x, flow, g, dx, dflow, n, h, w, c,
-                                          ho, wo, s);
+                                          ho, wo, ldx, s);
   return (int)cudaErrorInvalidValue;
 }

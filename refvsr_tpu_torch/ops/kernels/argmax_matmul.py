@@ -119,41 +119,58 @@ def _forward(ref_p, lr_p):
 
 
 def argmax_matmul_backward(ref_p: torch.Tensor, lr_p: torch.Tensor,
-                           index: torch.Tensor, g: torch.Tensor):
-    """(d ref_p, d lr_p) of argmax_matmul given conf's gradient g. CPU
-    tensors run the plain backward; CUDA tensors run the backward kernel
-    (anything else raises). ``argmax_matmul_backward.launches`` counts
-    kernel launches."""
+                           index: torch.Tensor, g: torch.Tensor,
+                           needs=(True, True)):
+    """(d ref_p, d lr_p) of argmax_matmul given conf's gradient g; each only
+    where `needs` (for ref_p, lr_p) asks for it, else None. CPU tensors run
+    the plain backward; CUDA tensors run the backward kernel (contiguous,
+    16-byte aligned, D a multiple of 16; anything else raises).
+    ``argmax_matmul_backward.launches`` counts kernel launches."""
+    need_ref, need_lr = needs
     if ref_p.device.type == "cpu":
-        return argmax_matmul_backward_plain(ref_p, lr_p, index, g)
+        d_ref, d_lr = argmax_matmul_backward_plain(ref_p, lr_p, index, g)
+        return (d_ref if need_ref else None), (d_lr if need_lr else None)
     if ref_p.device.type != "cuda" or ref_p.dtype not in _DTYPES:
         raise ValueError(f"unsupported tensors {ref_p.device} {ref_p.dtype}")
-    g = g.float().contiguous()
-    index = index.contiguous()
     n, l_ref, d = ref_p.shape
     l_lr = lr_p.shape[1]
-    if not (ref_p.is_contiguous() and lr_p.is_contiguous()):
+    if g.dtype != torch.float32:
+        g = g.float()
+    if not (ref_p.is_contiguous() and lr_p.is_contiguous()
+            and index.is_contiguous() and g.is_contiguous()):
         raise ValueError("argmax_matmul_backward needs contiguous inputs")
     if index.dtype != torch.int32 or g.shape != (n, l_lr) \
             or index.shape != (n, l_lr):
         raise ValueError("argmax_matmul_backward: bad index or gradient")
-    d_ref = torch.zeros(ref_p.shape, dtype=torch.float32,
-                        device=ref_p.device)
-    d_lr = torch.empty_like(lr_p)
-    if d_lr.numel() == 0:
-        return d_ref.to(ref_p.dtype), d_lr
-    fn = build.function("argmax_matmul", "argmax_matmul_backward_launch",
-                        _BACKWARD_ARGS)
-    build.launch(fn, ref_p.device, ref_p.data_ptr(), lr_p.data_ptr(),
-                 index.data_ptr(), g.data_ptr(), d_ref.data_ptr(),
-                 d_lr.data_ptr(), n, l_ref, l_lr, d, _DTYPES[ref_p.dtype])
-    argmax_matmul_backward.launches += 1
-    return d_ref.to(ref_p.dtype), d_lr
+    # what the forward takes, so every tensor it saves for autograd passes
+    if d % 16 or ref_p.data_ptr() % 16 or lr_p.data_ptr() % 16:
+        raise ValueError(f"argmax_matmul_backward needs D a multiple of 16 "
+                         f"and 16-byte aligned inputs, got D {d}")
+    # the launcher clears d_ref on the stream before the kernel
+    d_ref = (torch.empty_like(ref_p, dtype=torch.float32) if need_ref
+             else None)
+    d_lr = torch.empty_like(lr_p) if need_lr else None
+    if not lr_p.numel():
+        if d_ref is not None:
+            d_ref.zero_()
+    elif need_ref or need_lr:
+        fn = build.function("argmax_matmul", "argmax_matmul_backward_launch",
+                            _BACKWARD_ARGS)
+        build.launch(fn, ref_p.device, ref_p.data_ptr(), lr_p.data_ptr(),
+                     index.data_ptr(), g.data_ptr(),
+                     None if d_ref is None else d_ref.data_ptr(),
+                     None if d_lr is None else d_lr.data_ptr(), n, l_ref,
+                     l_lr, d, _DTYPES[ref_p.dtype])
+        argmax_matmul_backward.launches += 1
+    if d_ref is not None and ref_p.dtype != torch.float32:
+        d_ref = d_ref.to(ref_p.dtype)
+    return d_ref, d_lr
 
 
 class _ArgmaxMatmul(torch.autograd.Function):
     """argmax_matmul with its backward pass; saves (ref_p, lr_p, index) as
-    ``_pallas_argmax_fwd`` does."""
+    ``_pallas_argmax_fwd`` does. Each input's gradient is computed only when
+    it requires grad (None otherwise)."""
 
     @staticmethod
     def forward(ctx, ref_p, lr_p):
@@ -164,7 +181,8 @@ class _ArgmaxMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_conf, _g_index):
-        return argmax_matmul_backward(*ctx.saved_tensors, g_conf)
+        return argmax_matmul_backward(*ctx.saved_tensors, g_conf,
+                                      needs=ctx.needs_input_grad)
 
 
 def argmax_matmul(ref_p: torch.Tensor, lr_p: torch.Tensor):

@@ -107,8 +107,17 @@ def function(lib: str, name: str, argtypes: list):
 
 def launch(fn, device, *args):
     """Call the C launcher `fn` with `args` and the current stream of
-    `device` (its last argument); raise on the cudaError_t it returns."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    `device` (its last argument); raise on the cudaError_t it returns. The
+    device guard is entered only when `device` is not the current one. The
+    stream is read as a raw pointer: ``torch._C._cuda_getCurrentRawStream``
+    costs the host a few percent of ``torch.cuda.current_stream()``, which
+    builds a Stream object (``bench/probe_backward.py`` times both)."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")

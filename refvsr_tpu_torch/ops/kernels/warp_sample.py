@@ -25,11 +25,16 @@ Gradients: ``warp_sample`` is a ``torch.autograd.Function`` when x or the
 flow requires grad. ``dx`` scatters each live point's four weights times g
 into its inside corners; ``dflow`` (computed only when the flow requires
 grad, and only then is x kept for the backward pass) is the sum over C of g
-times the weights' derivatives, times ``w/(w-1)`` and ``h/(h-1)``. A dead
-point gives exact zeros to both, NaN coordinates included (the JAX pullback
-lets a NaN weight leak into dx through 0 * NaN; the port does not). The
-plain backward is autograd through ``warp_sample_plain``; the kernel
-accumulates dx with f32 atomics and casts it to x's dtype once.
+times the weights' derivatives, times ``w/(w-1)`` and ``h/(h-1)``; each is
+computed only when its input requires grad. A dead point gives exact zeros
+to both, NaN coordinates included (the JAX pullback lets a NaN weight leak
+into dx through 0 * NaN; the port does not). The plain backward is autograd
+through ``warp_sample_plain``. The backward kernel sums each thread's
+corner contributions to a 2 x 2 window of source pixels in registers
+before it reduces them into an f32 dx; that buffer has a pitch of C
+rounded up to 4 floats (``dx_pitch``), so that it takes float4 reductions,
+and dx is the view of its first C channels (f32) or that view cast to x's
+dtype once (bf16).
 """
 
 from __future__ import annotations
@@ -42,10 +47,16 @@ from refvsr_tpu_torch.ops.kernels import build
 
 # the C launchers' arguments before the stream
 _FORWARD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-_BACKWARD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+_BACKWARD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = {torch.float32: 1024, torch.bfloat16: 2048}
+
+
+def dx_pitch(c: int) -> int:
+    """Floats per source pixel of the backward kernel's f32 dx buffer: C
+    rounded up to 4, so that every pixel's row takes float4 reductions."""
+    return -(-c // 4) * 4
 
 
 def warp_coords(in_hw, flow: torch.Tensor):
@@ -177,34 +188,50 @@ def _forward(x, flow):
 
 
 def warp_sample_backward(g: torch.Tensor, flow: torch.Tensor, x_shape,
-                         x: torch.Tensor | None = None):
+                         x: torch.Tensor | None = None, need_dx: bool = True):
     """Gradients of warp_sample(x, flow) given the output's gradient g:
-    (dx, dflow or None), dflow when x is given. CPU tensors run the plain
-    backward; CUDA tensors run the backward kernel (anything else raises).
-    ``warp_sample_backward.launches`` counts kernel launches."""
+    (dx or None, dflow or None), dx when `need_dx`, dflow when x is given.
+    CPU tensors run the plain backward; CUDA tensors run the backward kernel
+    (anything else raises). ``warp_sample_backward.launches`` counts kernel
+    launches."""
     if g.device.type == "cpu":
-        return warp_sample_backward_plain(g, flow, x_shape, x)
+        dx, dflow = warp_sample_backward_plain(g, flow, x_shape, x)
+        return (dx if need_dx else None), dflow
     g = g.contiguous()
     _check_cuda(flow, g, *(() if x is None else (x,)))
     n, h, w, c = x_shape
     ho, wo = flow.shape[1], flow.shape[2]
-    dx = torch.zeros((n, h, w, c), dtype=torch.float32, device=g.device)
-    dflow = None if x is None else torch.zeros_like(flow)
-    if g.numel():
+    ldx = dx_pitch(c)
+    # the launcher clears dx on the stream before the kernel
+    dx = (g.new_empty((n, h, w, ldx), dtype=torch.float32) if need_dx
+          else None)
+    dflow = None if x is None else torch.empty_like(flow)
+    if not g.numel():
+        for t in (dx, dflow):
+            if t is not None:
+                t.zero_()
+    elif dx is not None or dflow is not None:
         fn = build.function("warp_sample", "warp_sample_backward_launch",
                             _BACKWARD_ARGS)
         build.launch(fn, g.device, None if x is None else x.data_ptr(),
-                     flow.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                     flow.data_ptr(), g.data_ptr(),
+                     None if dx is None else dx.data_ptr(),
                      None if dflow is None else dflow.data_ptr(), n, h, w, c,
-                     ho, wo, _DTYPES[g.dtype])
+                     ho, wo, ldx, _DTYPES[g.dtype])
         warp_sample_backward.launches += 1
-    return dx.to(g.dtype), dflow
+    if dx is not None:
+        if ldx != c:
+            dx = dx[..., :c]
+        if g.dtype != torch.float32:
+            dx = dx.to(g.dtype)
+    return dx, dflow
 
 
 class _WarpSample(torch.autograd.Function):
     """warp_sample with its backward pass: the plain version for CPU
     tensors, the kernels for CUDA tensors. x is saved only when the flow's
-    gradient is asked for; dx needs only the flow."""
+    gradient is asked for; dx needs only the flow. Each gradient is computed
+    only when its input requires grad (None otherwise)."""
 
     @staticmethod
     def forward(ctx, x, flow):
@@ -216,7 +243,8 @@ class _WarpSample(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         flow, x = ctx.saved_tensors
-        return warp_sample_backward(g, flow, ctx.x_shape, x)
+        return warp_sample_backward(g, flow, ctx.x_shape, x,
+                                    need_dx=ctx.needs_input_grad[0])
 
 
 def warp_sample(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

@@ -16,10 +16,16 @@ the kernels' ref-tile boundaries and between the lanes that share a row
 (``refvsr_tpu_torch/bench/ties.py``), resolved to the lowest index. Each
 bf16 D (16 to 144) has a build of its own and runs once; the f32 kernel runs
 at both ends of its D range. The backward kernels against the plain
-backward passes, f32: K1 dx and dflow within 1e-5 of the largest plain
-value (f32 atomics sum in another order), exact zeros at dead points; K2
-d_lr within 1e-6 and d_ref within 1e-5 of the largest (atomics), no
-gradient for duplicated ref rows that never win.
+backward passes against the plain backward in f32 on the same values: K1
+dx and dflow within 1e-5 (f32) or 2^-7 (bf16, one rounding of an f32 sum)
+of the largest plain value (register sums and atomics in another order),
+exact zeros at dead points, at every channel grouping, grid and alignment
+the forward test covers and past 2^31 elements of x; K2 d_lr within 1e-6
+and d_ref within 1e-5 (f32) or 2^-7 (bf16) of the largest, no gradient for
+duplicated ref rows that never win, at every D the forward kernels take,
+ragged L_lr and with every LR row picking one ref row; a gradient not asked
+for is not computed; what the forward refuses (D not a multiple of 16,
+unaligned rows) the backward refuses too.
 K3 (bf16) within 2^-7 |plain| + 2^-8 max|plain| elementwise: two bf16
 roundings of f32 sums taken in another order. K4 bitwise, out-of-range
 indices clamped."""
@@ -155,6 +161,91 @@ def test_warp_backward_kernel_matches_plain(gen, cuda_device, n, h, w, c,
             want.abs().max())
 
 
+def _dead_points(h, w, flow):
+    sx, sy = warp_coords((h, w), flow)
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    return ~((x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dflow", [False, True])
+@pytest.mark.parametrize("grid", ["odd", "2x", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [5, 8, 16, 48, 49, 56])
+def test_warp_backward_kernel_channel_groups(gen, cuda_device, c, dtype, grid,
+                                             with_dflow):
+    """The backward kernel at every channel grouping of the forward test
+    (16-byte loads of g and x, and one channel at a time; float4 reductions
+    into the padded dx), onto an odd-width grid, from the low-res grid onto
+    the 2x one, and with unaligned g and x; dx alone and dx + dflow."""
+    n, h, w = 2, 33, 47
+    ho, wo = (37, 53) if grid == "odd" else (2 * h, 2 * w)
+
+    def tensor(shape):
+        t = torch.from_numpy(gen.standard_normal(shape).astype(np.float32)
+                             ).to(cuda_device, dtype)
+        if grid == "unaligned":
+            t = torch.cat([torch.zeros(1, dtype=dtype, device=cuda_device),
+                           t.reshape(-1)])[1:].view(shape)
+            assert t.is_contiguous() and t.data_ptr() % 16
+        return t
+
+    x = tensor((n, h, w, c))
+    g = tensor((n, ho, wo, c))
+    flow = gen.uniform(-6, 6, (n, ho, wo, 2)).astype(np.float32)
+    flow[:, :3, :5] += 5000.0                      # dead: out of range
+    flow[gen.random((n, ho, wo)) < 0.02, 0] = np.nan   # dead: NaN
+    flow = torch.from_numpy(flow).to(cuda_device, dtype)
+    before = warp_sample_backward.launches
+    dx, dflow = warp_sample_backward(g, flow, x.shape,
+                                     x if with_dflow else None)
+    assert warp_sample_backward.launches == before + 1
+    dx_p, dflow_p = warp_sample_backward_plain(
+        g.float(), flow.float(), x.shape, x.float() if with_dflow else None)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert dx.shape == x.shape and dx.dtype == dtype
+    assert float((dx.float() - dx_p).abs().max()) <= tol * float(
+        dx_p.abs().max())
+    dead = _dead_points(h, w, flow)
+    assert bool(dead.any())
+    if with_dflow:
+        assert dflow.shape == flow.shape and dflow.dtype == dtype
+        assert bool((dflow[dead] == 0).all())
+        assert float((dflow.float() - dflow_p).abs().max()) <= tol * float(
+            dflow_p.abs().max())
+    else:
+        assert dflow is None
+    # a gradient carried by dead points alone leaves dx all zeros
+    dx_dead, _ = warp_sample_backward(
+        torch.where(dead[..., None], g, torch.zeros_like(g)), flow, x.shape)
+    assert bool((dx_dead == 0).all())
+
+
+@pytest.mark.cuda
+def test_warp_backward_kernel_64bit_offsets(gen, cuda_device):
+    """dx of more than 2^31 elements (x 3 x 8192 x 8192 x 16 bf16), so the
+    backward kernel takes its 64-bit offsets: batch item 2 starts past
+    2^31. Compared one batch item at a time against the plain backward in
+    f32."""
+    n, h, w, c = 3, 8192, 8192, 16
+    assert n * h * w * c >= 2 ** 31
+    g = torch.randn((n, 256, 384, c), dtype=torch.bfloat16,
+                    device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0))
+    flow = gen.uniform(-6, 6, (n, 256, 384, 2)).astype(np.float32)
+    flow[:, :3, :5] += 50000.0                     # dead: out of range
+    flow = torch.from_numpy(flow).to(cuda_device, torch.bfloat16)
+    dx, _ = warp_sample_backward(g, flow, (n, h, w, c))
+    assert dx.shape == (n, h, w, c) and dx.dtype == torch.bfloat16
+    for b in range(n):
+        want, _ = warp_sample_backward_plain(g[b:b + 1].float(),
+                                             flow[b:b + 1].float(),
+                                             (1, h, w, c))
+        assert float((dx[b:b + 1].float() - want).abs().max()) <= \
+            2.0 ** -7 * float(want.abs().max())
+        del want
+
+
 @pytest.mark.cuda
 def test_warp_autograd_runs_backward_kernel(gen, cuda_device):
     x = torch.from_numpy(gen.standard_normal((1, 20, 30, 8))
@@ -276,6 +367,83 @@ def test_argmax_backward_kernel_matches_plain(gen, cuda_device, n, l_ref,
     assert float((ref_t.grad - d_ref_p).abs().max()) <= 1e-5 * float(
         d_ref_p.abs().max())
     assert bool((ref_t.grad[:, -dup:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, d)
+                                     for d in range(16, 289, 16)]
+                         + [(torch.bfloat16, d) for d in range(16, 145, 16)])
+@pytest.mark.parametrize("one_row", [False, True])
+def test_argmax_backward_kernel_every_d(gen, cuda_device, dtype, d, one_row):
+    """Every D the forward kernels take, at a ragged L_lr; with `one_row`,
+    every LR row of a batch item picks one ref row, so all of its
+    reductions meet there."""
+    n, l_ref, l_lr = 3, 211, 517
+    ref = torch.from_numpy(gen.standard_normal((n, l_ref, d))
+                           .astype(np.float32)).to(cuda_device, dtype)
+    lr = torch.from_numpy(gen.standard_normal((n, l_lr, d))
+                          .astype(np.float32)).to(cuda_device, dtype)
+    idx = (np.full((n, l_lr), 17) if one_row
+           else gen.integers(0, l_ref, (n, l_lr)))
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
+    g = torch.from_numpy(gen.standard_normal((n, l_lr)).astype(np.float32)
+                         ).to(cuda_device)
+    before = argmax_matmul_backward.launches
+    d_ref, d_lr = argmax_matmul_backward(ref, lr, idx, g)
+    assert argmax_matmul_backward.launches == before + 1
+    assert d_ref.dtype == dtype and d_lr.dtype == dtype
+    # d_lr: one f32 product rounded once to the input type, as the plain
+    # version does
+    _, d_lr_p = argmax_matmul_backward_plain(ref, lr, idx, g)
+    assert float((d_lr.float() - d_lr_p.float()).abs().max()) <= 1e-6 * \
+        float(d_lr_p.float().abs().max())
+    d_ref_p, _ = argmax_matmul_backward_plain(ref.float(), lr.float(), idx,
+                                              g)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert float((d_ref.float() - d_ref_p).abs().max()) <= tol * float(
+        d_ref_p.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", [(True, False), (False, True)])
+def test_argmax_backward_kernel_computes_what_is_asked(gen, cuda_device,
+                                                       needs):
+    n, l_ref, l_lr, d = 2, 300, 517, 144
+    ref = torch.from_numpy(gen.standard_normal((n, l_ref, d))
+                           .astype(np.float32)).to(cuda_device)
+    lr = torch.from_numpy(gen.standard_normal((n, l_lr, d))
+                          .astype(np.float32)).to(cuda_device)
+    idx = torch.from_numpy(gen.integers(0, l_ref, (n, l_lr)).astype(
+        np.int32)).to(cuda_device)
+    g = torch.from_numpy(gen.standard_normal((n, l_lr)).astype(np.float32)
+                         ).to(cuda_device)
+    d_ref, d_lr = argmax_matmul_backward(ref, lr, idx, g, needs)
+    d_ref_p, d_lr_p = argmax_matmul_backward_plain(ref, lr, idx, g)
+    assert (d_ref is None) != needs[0] and (d_lr is None) != needs[1]
+    got, want, tol = ((d_ref, d_ref_p, 1e-5) if needs[0]
+                      else (d_lr, d_lr_p, 1e-6))
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,offset", [(torch.float32, 36, 0),
+                                            (torch.bfloat16, 20, 0),
+                                            (torch.float32, 144, 1),
+                                            (torch.bfloat16, 144, 1)])
+def test_argmax_backward_kernel_refuses_what_the_forward_refuses(
+        cuda_device, dtype, d, offset):
+    """D not a multiple of 16, or rows not 16-byte aligned: the backward
+    wrapper raises, as the forward does, and launches nothing."""
+    n, l_ref, l_lr = 2, 40, 30
+    ref = torch.zeros(n * l_ref * d + offset, dtype=dtype, device=cuda_device
+                      )[offset:].view(n, l_ref, d)
+    lr = torch.zeros((n, l_lr, d), dtype=dtype, device=cuda_device)
+    idx = torch.zeros((n, l_lr), dtype=torch.int32, device=cuda_device)
+    g = torch.ones((n, l_lr), device=cuda_device)
+    before = argmax_matmul_backward.launches
+    with pytest.raises(ValueError):
+        argmax_matmul_backward(ref, lr, idx, g)
+    assert argmax_matmul_backward.launches == before
 
 
 @pytest.mark.cuda

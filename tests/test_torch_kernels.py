@@ -22,6 +22,8 @@ values and exact zeros at every dead point. K2's plain backward against
 duplicated ref rows included (the gradient goes to the first occurrence
 only)."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,11 +37,11 @@ from refvsr_tpu.ops.warp import _bilinear_sample_lean
 from refvsr_tpu.ops.warp import warp as jax_warp
 from refvsr_tpu.ops.warp import warp_coords as jax_warp_coords
 from refvsr_tpu_torch.ops.kernels.argmax_matmul import (
-    argmax_matmul, argmax_matmul_backward, argmax_matmul_backward_plain,
-    argmax_matmul_plain)
+    _ArgmaxMatmul, argmax_matmul, argmax_matmul_backward,
+    argmax_matmul_backward_plain, argmax_matmul_plain)
 from refvsr_tpu_torch.ops.kernels.warp_sample import (
-    bilinear_sample, warp_coords, warp_sample, warp_sample_backward,
-    warp_sample_backward_plain, warp_sample_plain)
+    _WarpSample, bilinear_sample, warp_coords, warp_sample,
+    warp_sample_backward, warp_sample_backward_plain, warp_sample_plain)
 
 torch.set_num_threads(2)
 
@@ -249,3 +251,45 @@ def test_argmax_plain_backward_matches_pallas_vjp(rng, n, l_ref, l_lr, d):
         ref_t.detach(), lr_t.detach(), idx, torch.from_numpy(g))
     np.testing.assert_array_equal(d_ref.numpy(), ref_t.grad.numpy())
     np.testing.assert_array_equal(d_lr.numpy(), lr_t.grad.numpy())
+
+
+@pytest.mark.parametrize("needs", [(True, False), (False, True)])
+def test_functions_skip_gradients_nobody_asked_for(rng, needs):
+    """_WarpSample and _ArgmaxMatmul return None for an input that needs no
+    gradient, and the gradient asked for unchanged, on the CPU."""
+    x = rng.standard_normal((2, 9, 11, 5)).astype(np.float32)
+    flow = _flow(rng, 2, 18, 22)
+    g = rng.standard_normal((2, 18, 22, 5)).astype(np.float32)
+    xt, ft, gt = (torch.from_numpy(a) for a in (x, flow, g))
+    dx_p, dflow_p = warp_sample_backward_plain(gt, ft, x.shape, xt)
+    ctx = SimpleNamespace(saved_tensors=(ft, xt if needs[1] else None),
+                          x_shape=x.shape, needs_input_grad=needs)
+    dx, dflow = _WarpSample.backward(ctx, gt)
+    assert (dx is None) != needs[0] and (dflow is None) != needs[1]
+    if needs[0]:
+        torch.testing.assert_close(dx, dx_p, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(dflow, dflow_p, rtol=0, atol=0)
+    # through autograd: the input without requires_grad gets no gradient
+    xg = xt.clone().requires_grad_(needs[0])
+    fg = ft.clone().requires_grad_(needs[1])
+    warp_sample(xg, fg).backward(gt)
+    assert (xg.grad is None) != needs[0] and (fg.grad is None) != needs[1]
+
+    ref, lr = _patch_rows(rng, 2, 40, 30, 16, 4)
+    ref_t, lr_t = torch.from_numpy(ref), torch.from_numpy(lr)
+    _, idx = argmax_matmul_plain(ref_t, lr_t)
+    g_conf = torch.from_numpy(rng.standard_normal((2, 30)).astype(np.float32))
+    d_ref_p, d_lr_p = argmax_matmul_backward_plain(ref_t, lr_t, idx, g_conf)
+    ctx = SimpleNamespace(saved_tensors=(ref_t, lr_t, idx),
+                          needs_input_grad=needs)
+    d_ref, d_lr = _ArgmaxMatmul.backward(ctx, g_conf, None)
+    assert (d_ref is None) != needs[0] and (d_lr is None) != needs[1]
+    got, want = (d_ref, d_ref_p) if needs[0] else (d_lr, d_lr_p)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    rg = ref_t.clone().requires_grad_(needs[0])
+    lg = lr_t.clone().requires_grad_(needs[1])
+    argmax_matmul(rg, lg)[0].backward(g_conf)
+    assert (rg.grad is None) != needs[0] and (lg.grad is None) != needs[1]
+    assert warp_sample_backward.launches == 0
+    assert argmax_matmul_backward.launches == 0

@@ -37,7 +37,8 @@ from jax import lax
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from refvsr_tpu_torch.bench import microbench_conv, microbench_gather
+from refvsr_tpu_torch.bench import (microbench_conv, microbench_gather,
+                                   probe_backward)
 from refvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_bias,
                                                   conv3x3_bias_plain)
 from refvsr_tpu_torch.ops.kernels.gather_rows import (gather_rows,
@@ -243,6 +244,8 @@ def test_entry_points_raise_without_card():
         microbench_gather.run(16, 8, 32)
     with pytest.raises(RuntimeError):
         microbench_gather.main(["--check"])
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        probe_backward.main()
 
 
 def test_gather_check_on_cpu_exits_zero(capsys):
