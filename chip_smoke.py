@@ -94,8 +94,17 @@ K2_TRAIN_SHAPE = (2 * T, 1024, 1024, 144, 16)
 # the largest K2 similarity matrix the matmul + max yardstick materialises;
 # past it, the yardstick runs one batch element at a time
 K2_LIBRARY_MAX_BYTES = 16e9
+# the training phases start from seeded random weights: no pretrained
+# SPyNet or VGG19 is read (the Trainer warns that they are absent)
+NO_ASSETS = dict(spynet_ckpt=None, vgg19_ckpt=None)
 # K3 against its plain version at ragged shapes (H, W), C
-K3_RAGGED = (((37, 53), 16), ((25, 131), 48))
+# (tile heights 8, 4 and 2 rows by C, tiles 64 pixels wide): mid-tile in
+# H and W at every C, one row narrower than a tile, and images of more
+# tiles than the card holds blocks, so each block's halo ring wraps
+K3_RAGGED = (((37, 53), 16), ((25, 131), 48),
+             ((29, 101), 16), ((29, 101), 32), ((29, 101), 48),
+             ((29, 101), 64), ((29, 101), 80), ((1, 40), 48), ((1, 7), 16),
+             ((300, 700), 48), ((203, 517), 16), ((151, 450), 80))
 
 
 def log(*a):
@@ -749,7 +758,7 @@ def phase_small_training(dev):
     from refvsr_tpu_torch.train.trainer import Trainer
     cfg = get_config("RefVSR_MFID_8K", num_blocks=2, mid_channels=8,
                      frame_num=3, frame_itr_num=1, patch_size=16,
-                     batch_size=1)
+                     batch_size=1, **NO_ASSETS)
     batch = synthetic_batch(cfg, seed=8)
     res = {}
     for d in ("cpu", dev):
@@ -1045,7 +1054,7 @@ def phase_training(dev, card):
     from refvsr_tpu_torch.ops.kernels import warp_sample as k1_mod
     from refvsr_tpu_torch.train.trainer import Trainer
 
-    cfg = get_config("RefVSR_MFID_8K", batch_size=TRAIN_BATCH)
+    cfg = get_config("RefVSR_MFID_8K", batch_size=TRAIN_BATCH, **NO_ASSETS)
     check((cfg.num_blocks, cfg.mid_channels, cfg.flag_HD_in,
            cfg.matching_ksize, cfg.is_use_T, cfg.is_amp, cfg.loss,
            cfg.CX_vgg_layer, cfg.patch_size, cfg.frame_num,

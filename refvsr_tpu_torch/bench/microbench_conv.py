@@ -17,8 +17,11 @@ against its plain version elementwise within
 order), then times each of these by CUDA events after warm-up: K3;
 ``F.conv2d(x, w, bias)`` in channels-last bf16, one call as the net's
 ``Conv2d`` makes it (the yardstick); ``F.conv2d`` without bias; the plain
-version. One ``torch.profiler`` pass names the device kernels that each
-library call launches. With ``--device cpu`` it runs the plain version
+version. One ``torch.profiler`` pass gives K3's own device time and
+another names the device kernels that each library call launches; it
+prints the achieved GB/s and, as a reckoning and not a measurement of the
+stream, the stake of the resblock chain's 300 convs a streamed window:
+300 x (conv + bias - K3). With ``--device cpu`` it runs the plain version
 only, and says so. Exits 1 if K3 leaves the envelope.
 """
 
@@ -35,6 +38,10 @@ from refvsr_tpu_torch import resolve_device
 from refvsr_tpu_torch.bench import bound_ms, cuda_ms, device_kernels
 from refvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_bias,
                                                   conv3x3_bias_plain)
+
+# 3x3 convs of the resblock chain at 48 channels in one streamed window of
+# RefVSR_MFID_8K (of its 621 convolutions)
+RESBLOCK_CONVS = 300
 
 
 def make_inputs(h, w, c, device="cpu"):
@@ -103,6 +110,7 @@ def run(size=(1080, 1920), channels=48, device="cuda", iters=20, trace=True,
         max_abs=float(want.float().abs().max()),
         finite=bool(torch.isfinite(y.float()).all()))
     res["ms"] = cuda_ms(lambda: conv3x3_bias(x, wm, bias), iters)
+    res["gb_per_s"] = nbytes / res["ms"] / 1e6
     res["library_ms"] = cuda_ms(library, iters)
     res["library_nobias_ms"] = cuda_ms(library_nobias, iters)
     res["plain_ms"] = cuda_ms(lambda: conv3x3_bias_plain(x, wm, bias),
@@ -111,11 +119,25 @@ def run(size=(1080, 1920), channels=48, device="cuda", iters=20, trace=True,
     log(f"K3 conv3x3_bias {h}x{w}x{c} bf16: parity max|d| vs library conv "
         f"= {res['library_max_abs_diff']:.4g}; vs plain {res['max_abs_err']:.4g}"
         f" ({res['ratio']:.3f} of the envelope, max|y| {res['max_abs']:.4g})")
-    log(f"  kernel {res['ms']:.4f} ms; F.conv2d + bias {res['library_ms']:.4f}"
-        f" ms; F.conv2d, no bias {res['library_nobias_ms']:.4f} ms; plain "
-        f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']})")
+    log(f"  kernel {res['ms']:.4f} ms ({res['gb_per_s']:.0f} GB/s); "
+        f"F.conv2d + bias {res['library_ms']:.4f} ms; F.conv2d, no bias "
+        f"{res['library_nobias_ms']:.4f} ms; plain {res['plain_ms']:.4f} ms; "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
     if trace:
+        # the kernel's own device time, beside the call time above
+        rows = device_kernels(lambda: [conv3x3_bias(x, wm, bias)
+                                       for _ in range(iters)])
+        kern = [ms for name, ms, _ in rows if "conv3x3_bias" in name]
+        res["kernel_ms"] = sum(kern) / iters if kern else None
+        # a reckoning, not a measurement of the stream: the resblock
+        # chain's RESBLOCK_CONVS convs of a streamed window at this shape,
+        # each as the library's conv + bias against K3
+        res["stake_ms_per_window"] = RESBLOCK_CONVS * (res["library_ms"]
+                                                       - res["ms"])
+        log(f"  kernel device time {res['kernel_ms']} ms; reckoned stake "
+            f"{RESBLOCK_CONVS} x (F.conv2d + bias - kernel) = "
+            f"{res['stake_ms_per_window']:.2f} ms per streamed window (a "
+            f"reckoning, not a stream measurement)")
         for key, fn in (("kernels_bias", library),
                         ("kernels_nobias", library_nobias)):
             res[key] = device_kernels(fn)

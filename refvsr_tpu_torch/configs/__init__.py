@@ -38,6 +38,10 @@ class Config:
     CX_vgg_layer: str = "relu3_4"
     is_amp: bool = False
     is_use_T: bool = False
+    # pretrained third-party assets, loaded by the Trainer
+    # (utils/convert.load_pretrained_assets); an absent file warns
+    spynet_ckpt: Optional[str] = "./ckpt/SPyNet.pytorch"
+    vgg19_ckpt: Optional[str] = "./ckpt/VGG19.pytorch"
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

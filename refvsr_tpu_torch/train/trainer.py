@@ -16,7 +16,10 @@ Semantics kept from the JAX package:
   step counted from 0 before each update. A parameter with no gradient in a
   step counts as a zero gradient, as it does in JAX;
 - SPyNet (its flows run without gradients) and the loss VGGs are frozen
-  and outside the optimizer; the network's matching VGG prefix trains.
+  and outside the optimizer; the network's matching VGG prefix trains;
+- the pretrained SPyNet and VGG19 are loaded from ``config.spynet_ckpt``
+  and ``config.vgg19_ckpt`` when the files exist, with a loud warning when
+  they do not (``utils/convert.load_pretrained_assets``).
 
 One host-to-device upload per batch; the window slices are views on the
 device and the errors are summed on the device and read once per batch."""
@@ -33,6 +36,7 @@ from refvsr_tpu_torch.losses import LossModule
 from refvsr_tpu_torch.models.blocks import init_weights
 from refvsr_tpu_torch.models.refvsr import build_refvsr, init_stream_state
 from refvsr_tpu_torch.train import schedule as schedules
+from refvsr_tpu_torch.utils.convert import load_pretrained_assets
 
 
 class ClippedAdam:
@@ -74,7 +78,9 @@ class Trainer:
     """Holds the network, the loss module and the optimizer state of one
     training run. ``device`` is the card unless the caller asks for the
     CPU; ``seed`` (default ``config.manual_seed``) seeds the random
-    weights of the network and of the loss VGGs."""
+    weights of the network and of the loss VGGs, which the pretrained
+    assets then overwrite where the configured files exist (``assets``
+    reports what was filled)."""
 
     def __init__(self, config, device="cuda", seed: Optional[int] = None):
         if config.is_amp:
@@ -92,6 +98,7 @@ class Trainer:
         init_weights(self.loss_mod,
                      torch.Generator().manual_seed(self.seed + 1))
         self.loss_mod.to(self.device)
+        self.assets = load_pretrained_assets(config, self.net, self.loss_mod)
         self.schedule = schedules.from_config(config)
         self.params = [p for p in self.net.parameters() if p.requires_grad]
         self.opt = ClippedAdam(self.params, config.gc, config.beta1,

@@ -7,11 +7,19 @@ which maps every flax leaf path to its reference key with this module's own
 copy of the rules of ``refvsr_tpu/utils/convert.py:_torch_key_for`` (the
 RefVSR subset) and transposes conv kernels HWIO -> OIHW. The JAX
 ``LossModule``'s parameters (``cx_<type>/vgg/conv_<i>``) come across into
-the port's ``losses.LossModule`` with ``loss_params_from_jax``."""
+the port's ``losses.LossModule`` with ``loss_params_from_jax``.
+
+The pretrained third-party assets that the reference loads at model
+construction (the frozen SPyNet, ``./ckpt/SPyNet.pytorch``, and torchvision
+VGG19 for the matching prefix and the contextual losses) come in with
+``load_pretrained_assets``, the counterpart of the JAX package's loader of
+the same name; it fills the port's modules in place."""
 
 from __future__ import annotations
 
+import os
 import re
+import warnings
 from typing import Dict, Mapping
 
 import numpy as np
@@ -134,3 +142,100 @@ def load_reference_state_dict(net: torch.nn.Module, sd, strict: bool = True):
         clean[k] = torch.as_tensor(np.asarray(v)) if not isinstance(
             v, torch.Tensor) else v
     return net.load_state_dict(clean, strict=strict)
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pytorch``/``.pth`` file's state dict on the CPU (a top-level
+    ``state_dict`` entry is unwrapped); values that are not tensors become
+    tensors."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(
+        np.asarray(v)) for k, v in obj.items()}
+
+
+def load_spynet_weights(sd, net: torch.nn.Module) -> int:
+    """Fill ``net.FlowNet`` from a standalone SPyNet state dict (mmedit
+    layout, ``basic_module.{i}.basic_module.{j}.conv.{weight,bias}``; a
+    ``module.`` prefix is stripped). Raises on a missing key or a shape
+    mismatch, before anything is written. Returns the number of tensors
+    filled."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    found, missing = [], []
+    for key, p in net.FlowNet.named_parameters():
+        if key not in sd:
+            missing.append(key)
+            continue
+        w = torch.as_tensor(sd[key])
+        if w.shape != p.shape:
+            raise ValueError(f"SPyNet shape mismatch for {key}: checkpoint "
+                             f"{tuple(w.shape)} vs {tuple(p.shape)}")
+        found.append((p, w))
+    if missing:
+        raise ValueError(f"SPyNet conversion incomplete: missing={missing}")
+    with torch.no_grad():
+        for p, w in found:
+            p.copy_(w)
+    return len(found)
+
+
+_VGG_KEY = re.compile(r"(?:^|\.)(?:feature_extract|vgg)\.(\d+)\."
+                      r"(weight|bias)$")
+
+
+def load_vgg19_features(vgg_sd, module: torch.nn.Module) -> int:
+    """Fill every VGG19 prefix in `module` (the matching's
+    ``feature_extract`` and the contextual losses' ``vgg``, whose convs sit
+    under their torchvision ``features`` index) from a torchvision vgg19
+    state dict (``features.<idx>.{weight,bias}``; the classifier is
+    ignored). A tensor whose key is absent or whose shape differs is left as
+    it is. Returns the number of tensors filled."""
+    count = 0
+    with torch.no_grad():
+        for key, p in module.named_parameters():
+            m = _VGG_KEY.search(key)
+            if m is None:
+                continue
+            w = vgg_sd.get(f"features.{m.group(1)}.{m.group(2)}")
+            if w is not None and tuple(w.shape) == tuple(p.shape):
+                p.copy_(torch.as_tensor(w))
+                count += 1
+    return count
+
+
+def load_pretrained_assets(config, net: torch.nn.Module,
+                           loss_mod: torch.nn.Module = None) -> dict:
+    """Load the frozen SPyNet (``config.spynet_ckpt``) into ``net.FlowNet``
+    and torchvision VGG19 (``config.vgg19_ckpt``) into the net's matching
+    prefix and, when given, the loss module's VGGs, in place. A configured
+    file that is absent (or a field that is None) warns loudly: the run
+    then trains against random frozen flow and VGG features. Returns a
+    report of the tensors filled: ``spynet_leaves``, ``vgg_net_leaves`` and,
+    when the VGG file was read and `loss_mod` given, ``vgg_loss_leaves``."""
+    report = {}
+    sp = config.spynet_ckpt
+    if sp and os.path.exists(sp):
+        report["spynet_leaves"] = load_spynet_weights(
+            load_torch_checkpoint(sp), net)
+    else:
+        warnings.warn(
+            f"spynet_ckpt {sp!r} not found — the frozen flow network keeps "
+            "its RANDOM init (the reference loads ./ckpt/SPyNet.pytorch). "
+            "Place the file there or set config.spynet_ckpt.", stacklevel=2)
+        report["spynet_leaves"] = 0
+
+    vg = config.vgg19_ckpt
+    if vg and os.path.exists(vg):
+        vsd = load_torch_checkpoint(vg)
+        report["vgg_net_leaves"] = load_vgg19_features(vsd, net)
+        if loss_mod is not None:
+            report["vgg_loss_leaves"] = load_vgg19_features(vsd, loss_mod)
+    else:
+        warnings.warn(
+            f"vgg19_ckpt {vg!r} not found — the matching prefix and the "
+            "contextual losses' VGGs keep their RANDOM init (the reference "
+            "uses pretrained torchvision vgg19).", stacklevel=2)
+        report["vgg_net_leaves"] = 0
+    return report

@@ -27,7 +27,11 @@ ragged L_lr and with every LR row picking one ref row; a gradient not asked
 for is not computed; what the forward refuses (D not a multiple of 16,
 unaligned rows) the backward refuses too.
 K3 (bf16) within 2^-7 |plain| + 2^-8 max|plain| elementwise: two bf16
-roundings of f32 sums taken in another order. K4 bitwise, out-of-range
+roundings of f32 sums taken in another order; at every C, at shapes that
+end mid-tile in both H and W (the tile height is 8, 4 or 2 rows by C, the
+tile width 64 pixels), a single row narrower than a tile, images of more
+tiles than the card holds blocks (each block walks several tiles and its
+halo ring wraps), and the model's 1080x1920x48. K4 bitwise, out-of-range
 indices clamped."""
 
 import numpy as np
@@ -447,8 +451,17 @@ def test_argmax_backward_kernel_refuses_what_the_forward_refuses(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w,c", [(37, 53, 16), (25, 131, 48), (4, 70, 80),
-                                   (1, 1, 32)])
+@pytest.mark.parametrize("h,w,c", [
+    (37, 53, 16), (25, 131, 48), (4, 70, 80), (1, 1, 32),
+    # mid-tile in H at every tile height (8, 4, 2) and in W
+    (29, 101, 16), (29, 101, 32), (29, 101, 48), (29, 101, 64),
+    (29, 101, 80),
+    # one row narrower than a tile
+    (1, 40, 48), (1, 7, 16),
+    # more tiles than resident blocks: the ring wraps
+    (300, 700, 48), (203, 517, 16), (151, 450, 80),
+    # the model's resblock conv
+    (1080, 1920, 48)])
 def test_conv3x3_kernel_matches_plain(cuda_device, h, w, c):
     x, wm, bias = make_inputs(h, w, c, cuda_device)
     before = conv3x3_bias.launches
@@ -456,6 +469,7 @@ def test_conv3x3_kernel_matches_plain(cuda_device, h, w, c):
     assert conv3x3_bias.launches == before + 1
     want = conv3x3_bias_plain(x, wm, bias)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
     assert envelope_ratio(got, want) <= 1.0
 
 

@@ -29,19 +29,49 @@ choices they rest on:
   in f32 at small shapes with dead points (far out-of-range flow, NaN) and a
   band of scattered flow that forces restarts, it must give the plain
   backward's and the JAX pullback's dx and dflow within 1e-5 of their
-  largest magnitude, with fewer reductions than four per live pixel.
+  largest magnitude, with fewer reductions than four per live pixel;
+- K3's tile plan. Tiles of TH output rows (8 at C = 16 and 48) x 64
+  pixels; each tile's halo buffer holds (TH + 2) rows x 66 pixels,
+  channel-group-major (one TMA box per 16-channel group: [group][row]
+  [pixel] x 32 bytes in the 32-byte swizzle, the 16-byte half of each
+  32-byte row flipped where address bit 7 is set, each slab starting on
+  1024 bytes), zero outside the image at negative and past-the-edge
+  coordinates; wm is held
+  as wgmma's K-major B operand (16-byte chunk c of output channel n at byte
+  (c C + n) 16). Each output row is a chain of m64nCk16 products over
+  K = 9C, tap-major in 16-channel steps, whose operands are read through
+  the kernel's own descriptor arithmetic from those two byte images: A in
+  the 32-byte swizzle (32-byte rows, 256 bytes between 8-row groups, the
+  swizzle taken on the absolute address, so a tap's start may sit inside
+  an atom), B unswizzled (8 x 16-byte core matrices, leading and stride
+  byte offsets); the f32 sum is rounded to bf16, the bias added and the result
+  rounded again, and only the pixels inside the image are stored (a ragged
+  last tile in H and in W). At small ragged shapes it must agree with the
+  plain version and with the Pallas kernel run in interpret mode within
+  the card's envelope, 2^-7 |plain| + 2^-8 max|plain| (f32 sums in another
+  order under two bf16 roundings), writing every output once.
 """
+
+import functools
+import importlib.util
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 import refvsr_tpu.ops.pallas.warp_select as ws
 from refvsr_tpu.ops.pallas.matching_kernel import pallas_argmax_matmul
 from refvsr_tpu.ops.warp import warp_coords as jax_warp_coords
+from refvsr_tpu_torch.bench.microbench_conv import (envelope_ratio,
+                                                    make_inputs)
 from refvsr_tpu_torch.bench.ties import tied_rows
+from refvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3_bias_plain
 from refvsr_tpu_torch.ops.kernels.argmax_matmul import argmax_matmul_plain
 from refvsr_tpu_torch.ops.kernels.warp_sample import (
     warp_coords, warp_sample_backward_plain)
@@ -303,3 +333,182 @@ def test_k1_backward_run_plan_matches_plain_and_jax(rng, n, h, w, c, ho, wo,
                      dsy_j * 0.5 * h * (2.0 / (h - 1))], -1)
     np.testing.assert_allclose(dflow.numpy()[live], want[live], rtol=0,
                                atol=1e-5 * np.abs(want[live]).max())
+
+
+# ------------------------------------------------------------- K3 plan
+
+K3_TW, K3_PW = 64, 66           # output pixels a tile row; halo pixels
+K3_TH = {16: 8, 32: 8, 48: 8, 64: 4, 80: 2}
+
+
+def k3_slab(rows):
+    """Bytes of one 16-channel group's slab of a halo buffer: rows x 66
+    pixels x 32 bytes, padded to 1024 (a swizzled TMA destination's
+    alignment)."""
+    return -(-rows * K3_PW * 32 // 1024) * 1024
+
+
+def swizzle32(byte):
+    """The 32-byte swizzle of a shared-memory byte address: the 16-byte
+    chunk bit (4) flipped by address bit 7."""
+    return byte ^ (((byte >> 7) & 1) << 4)
+
+
+def k3_halo_image(x, y0, x0, rows):
+    """A tile's halo buffer as the kernel's TMA boxes fill it: bf16 values
+    of x (H, W, C), one ``k3_slab(rows)``-byte slab per 16-channel group of
+    [row][pixel][channel] in the 32-byte swizzle, flattened; image rows
+    y0 .. y0 + rows - 1 and columns x0 .. x0 + 65, zero outside the
+    image."""
+    h, w, c = x.shape
+    gy = np.arange(rows) + y0
+    gx = np.arange(K3_PW) + x0
+    inside = ((gy[:, None] >= 0) & (gy[:, None] < h) & (gx >= 0) &
+              (gx < w))
+    vals = x[np.clip(gy, 0, h - 1)][:, np.clip(gx, 0, w - 1)]
+    vals = np.where(inside[..., None], vals, 0.0)
+    slabs = vals.reshape(rows, K3_PW, c // 16, 16).transpose(2, 0, 1, 3)
+    byte = (np.arange(c // 16)[:, None, None, None] * k3_slab(rows) +
+            (np.arange(rows)[:, None, None] * K3_PW +
+             np.arange(K3_PW)[:, None]) * 32 + np.arange(16) * 2)
+    image = np.zeros(c // 16 * k3_slab(rows) // 2, np.float32)
+    image[swizzle32(byte) // 2] = slabs
+    return image
+
+
+def k3_halo_at(image, rows, k, row, px):
+    """The 16 channels of halo pixel (row, px) in group k, read back."""
+    byte = k * k3_slab(rows) + (row * K3_PW + px) * 32 + np.arange(16) * 2
+    return image[swizzle32(byte) // 2]
+
+
+def k3_weight_image(wm):
+    """wm (9C, C) as the kernel stages it: 16-byte chunk c (8 consecutive
+    K rows) of output channel n at byte (c C + n) 16, flattened."""
+    k, c = wm.shape
+    return wm.reshape(k // 8, 8, c).transpose(0, 2, 1).ravel()
+
+
+def desc_view_sw32(image, start, rows):
+    """The (rows, 16) K-major operand a 32-byte-swizzled wgmma descriptor
+    reads from a bf16 byte image: 32-byte rows of 16 values, 256 bytes
+    between 8-row groups, the swizzle on the absolute address."""
+    m = np.arange(rows)[:, None]
+    kk = np.arange(16)[None, :]
+    byte = start + (m // 8) * 256 + (m % 8) * 32 + kk * 2
+    return image[swizzle32(byte) // 2]
+
+
+def desc_view(image, start, lbo, sbo, rows, k=16):
+    """The (rows, k) operand a K-major, unswizzled wgmma descriptor reads
+    from a bf16 byte image: 8 x 16-byte core matrices, `lbo` bytes apart
+    along K and `sbo` bytes apart along M/N, from byte `start`."""
+    m = np.arange(rows)[:, None]
+    kk = np.arange(k)[None, :]
+    byte = (start + (m // 8) * sbo + (kk // 8) * lbo + (m % 8) * 16 +
+            (kk % 8) * 2)
+    return image[byte // 2]
+
+
+def run_plan_conv(x, wm, bias):
+    """K3's tile plan on bf16-valued f32 arrays: x (H, W, C), wm (9C, C),
+    bias (C,). Returns y (H, W, C) as bf16 values in f32, NaN where no tile
+    stored."""
+    h, w, c = x.shape
+    g, th = c // 8, K3_TH[c]
+    wimg = k3_weight_image(wm)
+    bias_t = torch.from_numpy(bias).to(torch.bfloat16).float()
+    y = np.full((h, w, c), np.nan, np.float32)
+    for ty in range(-(-h // th)):
+        for tx in range(-(-w // K3_TW)):
+            halo = k3_halo_image(x, ty * th - 1, tx * K3_TW - 1, th + 2)
+            slab = k3_slab(th + 2)
+            for r in range(th):
+                acc = np.zeros((K3_TW, c), np.float32)
+                for t in range(9):
+                    for s in range(c // 16):
+                        a_start = s * slab + ((r + t // 3) * K3_PW +
+                                              t % 3) * 32
+                        b_off = (t * g + 2 * s) * c
+                        a = desc_view_sw32(halo, a_start, K3_TW)
+                        b = desc_view(wimg, b_off * 16, c * 16, 128, c)
+                        acc += a @ b.T
+                out = (torch.from_numpy(acc).to(torch.bfloat16).float() +
+                       bias_t).to(torch.bfloat16).float().numpy()
+                gy, x0 = ty * th + r, tx * K3_TW
+                if gy < h:
+                    px = min(K3_TW, w - x0)
+                    assert np.isnan(y[gy, x0:x0 + px]).all()
+                    y[gy, x0:x0 + px] = out[:px]
+    return y
+
+
+def test_k3_halo_zero_fills_outside_the_image():
+    x = np.arange(1, 1 + 2 * 70 * 32, dtype=np.float32).reshape(2, 70, 32)
+
+    def pixels(image, rows):
+        return np.stack([[[k3_halo_at(image, rows, k, r, p)
+                           for p in range(K3_PW)] for r in range(rows)]
+                         for k in range(2)])
+    # the first tile: rows -1 .. 2, columns -1 .. 64
+    halo = pixels(k3_halo_image(x, -1, -1, 4), 4)
+    assert not halo[:, 0].any() and not halo[:, 3].any()  # rows -1 and 2
+    assert not halo[:, :, 0].any()                        # column -1
+    assert (halo[:, 1:3, 1:] > 0).all()
+    # the last tile of the ragged rows: columns 63 .. 69 inside, 70 .. 128
+    # zero
+    halo = pixels(k3_halo_image(x, 0, 63, 2), 2)
+    assert (halo[:, :, :7] > 0).all() and not halo[:, :, 7:].any()
+    # group k of a pixel holds its channels 16k .. 16k + 15
+    np.testing.assert_array_equal(halo[1, 1, 2], x[1, 65, 16:32])
+    # each slab starts on 1024 bytes; the swizzle moves data: the same
+    # image read without it differs
+    assert k3_slab(10) == 21504 and k3_slab(4) == 9216
+    image = k3_halo_image(x, 0, 0, 2)
+    idx = np.arange(2 * K3_PW * 16)
+    assert not np.array_equal(image[idx], image[swizzle32(idx * 2) // 2])
+
+
+def _conv_script():
+    """scripts/microbench_pallas_conv.py as a module, with JAX's cache
+    settings and sys.path as they were before its import."""
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs")
+    before = {k: getattr(jax.config, k) for k in keys}
+    path = list(sys.path)
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "microbench_pallas_conv", Path(__file__).resolve().parents[1] /
+            "scripts" / "microbench_pallas_conv.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        for k, v in before.items():
+            jax.config.update(k, v)
+        sys.path[:] = path
+    return mod
+
+
+@pytest.mark.parametrize("h,w,c", [(15, 70, 16), (15, 70, 48),
+                                   (20, 131, 48)])
+def test_k3_tile_plan_matches_plain_and_pallas(monkeypatch, h, w, c):
+    """Ragged in H (TH = 8) and W (64-pixel tiles); the Pallas kernel runs
+    with 5-row stripes (H a multiple of them) in interpret mode."""
+    x, wm, bias = make_inputs(h, w, c)
+    got = run_plan_conv(x.float().numpy(), wm.float().numpy(),
+                        bias.float().numpy().ravel())
+    assert not np.isnan(got).any()            # every output stored once
+    got = torch.from_numpy(got)
+    want = conv3x3_bias_plain(x, wm, bias)
+    assert envelope_ratio(got, want) <= 1.0
+    script = _conv_script()
+    for name, value in (("H", h), ("W", w), ("C", c), ("R", 5),
+                        ("WP", -(-(w + 2) // 8) * 8)):
+        monkeypatch.setattr(script, name, value)
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(
+        pl.pallas_call, interpret=pltpu.InterpretParams()))
+    pallas = script.pallas_conv(*(jnp.asarray(t.float().numpy(),
+                                              jnp.bfloat16)
+                                  for t in (x, wm, bias)), concat_k=True)
+    pallas = torch.from_numpy(np.asarray(pallas, np.float32))
+    assert envelope_ratio(got, pallas) <= 1.0

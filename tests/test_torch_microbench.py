@@ -38,7 +38,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from refvsr_tpu_torch.bench import (microbench_conv, microbench_gather,
-                                   probe_backward)
+                                   probe_backward, probe_conv)
 from refvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_bias,
                                                   conv3x3_bias_plain)
 from refvsr_tpu_torch.ops.kernels.gather_rows import (gather_rows,
@@ -246,6 +246,8 @@ def test_entry_points_raise_without_card():
         microbench_gather.main(["--check"])
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         probe_backward.main()
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        probe_conv.main()
 
 
 def test_gather_check_on_cpu_exits_zero(capsys):

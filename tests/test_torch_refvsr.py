@@ -7,7 +7,12 @@ parameters (carried over by ``params_from_jax``) go through the JAX net's
 forward_first -> forward_stream -> forward_stream and through the port's
 ``StreamRunner(device="cpu")``. Outputs and the carried state agree within
 atol 2e-4, the full-net precedent (f32 convolutions summed in another order
-through ~60 layers)."""
+through ~60 layers).
+
+The default ``RefVSR_MFID`` wiring (flag_HD_in False, matching_ksize 2,
+refs at 2x the LR size) runs beside it at the same size and tolerance. Its
+weights are the port's seeded init, carried to the JAX net by the JAX
+package's ``convert_state_dict``, and the JAX entry points run jitted."""
 
 import jax
 import jax.numpy as jnp
@@ -17,8 +22,10 @@ import torch
 
 from refvsr_tpu.models.refvsr import RefVSRNet as JaxNet
 from refvsr_tpu.models.refvsr import init_stream_state as jax_init_state
+from refvsr_tpu.utils.convert import convert_state_dict
 from refvsr_tpu_torch.configs import get_config
 from refvsr_tpu_torch.eval.stream import StreamRunner
+from refvsr_tpu_torch.models.blocks import init_weights
 from refvsr_tpu_torch.models.refvsr import RefVSRNet, build_refvsr
 from refvsr_tpu_torch.utils.convert import params_from_jax
 
@@ -76,6 +83,51 @@ def slice_run():
     return results
 
 
+@pytest.fixture(scope="module")
+def default_run():
+    """The default wiring's JAX and port outputs and states for three
+    windows (forward_first, then two forward_stream), computed once."""
+    rng = np.random.default_rng(6)
+    frames = T + 2
+    lrs_all = rng.random((N, frames, H, W, 3)).astype(np.float32)
+    refs_all = rng.random((N, frames, 2 * H, 2 * W, 3)).astype(np.float32)
+    net = RefVSRNet(scale=4, num_blocks=BLOCKS, mid_channels=MID,
+                    matching_ksize=2, flag_HD_in=False)
+    init_weights(net, torch.Generator().manual_seed(3))
+    jnet = JaxNet(scale=4, num_blocks=BLOCKS, mid_channels=MID,
+                  matching_ksize=2, flag_HD_in=False)
+    shapes = jax.eval_shape(
+        lambda lrs, refs: jnet.init(
+            jax.random.PRNGKey(0), lrs, refs,
+            jax_init_state(N, H, W, MID, num_frames=T)),
+        lrs_all[:, :T], refs_all[:, :T])
+    params, _, _ = convert_state_dict(
+        {k: v.numpy() for k, v in net.state_dict().items()},
+        jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32),
+                               shapes))
+    first = jax.jit(lambda p, lrs, refs: jnet.apply(
+        p, lrs, refs, method=JaxNet.forward_first))
+    stream = jax.jit(lambda p, lrs, refs, st: jnet.apply(
+        p, lrs, refs, st, method=JaxNet.forward_stream))
+    runner = StreamRunner(net, reset_branch=None, device="cpu")
+    results = []
+    st = None
+    for wi in range(3):
+        lrs = lrs_all[:, wi:wi + T]
+        refs = refs_all[:, wi:wi + T]
+        if wi == 0:
+            out_j, st, _ = first(params, lrs, refs)
+        else:
+            out_j, st, _ = stream(params, lrs, refs, st)
+        out_t, _ = runner.process(lrs, refs, is_first=(wi == 0))
+        st_t = {k: getattr(runner.state, k).clone().numpy()
+                for k in STATE_KEYS}
+        st_j = {k: np.asarray(getattr(st, k), np.float32) for k in STATE_KEYS}
+        results.append((np.asarray(out_j, np.float32), out_t, st_j, st_t,
+                        int(st.tail_base), runner.state.tail_base))
+    return results
+
+
 @pytest.mark.parametrize("window", [0, 1, 2])
 def test_stream_output_matches_jax(slice_run, window):
     out_j, out_t, *_ = slice_run[window]
@@ -87,6 +139,24 @@ def test_stream_output_matches_jax(slice_run, window):
 @pytest.mark.parametrize("key", STATE_KEYS)
 def test_stream_state_matches_jax(slice_run, window, key):
     _, _, st_j, st_t, base_j, base_t = slice_run[window]
+    assert base_t == base_j
+    assert st_t[key].shape == st_j[key].shape
+    np.testing.assert_allclose(st_t[key], st_j[key], atol=ATOL)
+
+
+@pytest.mark.parametrize("window", [0, 1, 2])
+def test_default_wiring_output_matches_jax(default_run, window):
+    out_j, out_t, *_ = default_run[window]
+    assert out_t.shape == (N, 4 * H, 4 * W, 3)
+    # most of the frame lies inside the clamp, so the values are compared
+    assert ((out_t > 0) & (out_t < 1)).mean() > 0.5
+    np.testing.assert_allclose(out_t, out_j, atol=ATOL)
+
+
+@pytest.mark.parametrize("window", [0, 1, 2])
+@pytest.mark.parametrize("key", STATE_KEYS)
+def test_default_wiring_state_matches_jax(default_run, window, key):
+    _, _, st_j, st_t, base_j, base_t = default_run[window]
     assert base_t == base_j
     assert st_t[key].shape == st_j[key].shape
     np.testing.assert_allclose(st_t[key], st_j[key], atol=ATOL)

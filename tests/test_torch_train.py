@@ -24,7 +24,14 @@ Tolerances, each with its reason:
   1e-6 (gradients of ~60 layers summed in another order, back through
   bicubic resizes, the affine sampler and the matching argmax);
 - iteration mean errors rtol 2e-4 plus atol 1e-6: two steps, the second
-  on parameters that the first update moved by Adam's near-sign steps."""
+  on parameters that the first update moved by Adam's near-sign steps.
+
+The default ``RefVSR_MFID`` wiring (flag_HD_in False, matching_ksize 2,
+refs at 2x the LR size) runs two ``forward_train`` windows beside it, the
+state carried from the first to the second, at the same size and atol 2e-4;
+its weights are the port's seeded init, carried to the JAX net by the JAX
+package's ``convert_state_dict``, and JAX's ``forward_train`` runs
+jitted."""
 
 import warnings
 
@@ -44,10 +51,12 @@ from refvsr_tpu.models.refvsr import init_stream_state as jax_init_state
 from refvsr_tpu.ops.image import gaussian_lowpass as jax_gaussian_lowpass
 from refvsr_tpu.train import schedule as jax_schedule
 from refvsr_tpu.train.trainer import Trainer as JaxTrainer
+from refvsr_tpu.utils.convert import convert_state_dict
 from refvsr_tpu_torch.configs import get_config
 from refvsr_tpu_torch.losses import LossModule, parse_loss_spec
 from refvsr_tpu_torch.losses.contextual import CXLoss
-from refvsr_tpu_torch.models.refvsr import init_stream_state
+from refvsr_tpu_torch.models.blocks import init_weights
+from refvsr_tpu_torch.models.refvsr import RefVSRNet, init_stream_state
 from refvsr_tpu_torch.ops.image import gaussian_lowpass
 from refvsr_tpu_torch.train import schedule
 from refvsr_tpu_torch.train.trainer import ClippedAdam, Trainer
@@ -136,6 +145,55 @@ def train_run():
                 grads=dict(zip(names, grads)))
     port["means"], _ = tr.iteration(batch)
     return dict(jax=jax_side, port=port, trainer=tr, frozen=frozen)
+
+
+@pytest.fixture(scope="module")
+def default_train_run():
+    """The default wiring's forward_train on two consecutive windows, the
+    state carried, on JAX and on the port from the same weights."""
+    t, p, mid = SMALL["frame_num"], SMALL["patch_size"], SMALL["mid_channels"]
+    rng = np.random.default_rng(9)
+    lrs_all = rng.random((1, t + 1, p, p, 3)).astype(np.float32)
+    refs_all = rng.random((1, t + 1, 2 * p, 2 * p, 3)).astype(np.float32)
+    net = RefVSRNet(scale=4, num_blocks=SMALL["num_blocks"],
+                    mid_channels=mid, matching_ksize=2, flag_HD_in=False)
+    init_weights(net, torch.Generator().manual_seed(4))
+    jnet = JaxNet(scale=4, num_blocks=SMALL["num_blocks"], mid_channels=mid,
+                  matching_ksize=2, flag_HD_in=False)
+    shapes = jax.eval_shape(
+        lambda lrs, refs: jnet.init(jax.random.PRNGKey(0), lrs, refs,
+                                    jax_init_state(1, p, p, mid,
+                                                   num_frames=t)),
+        lrs_all[:, :t], refs_all[:, :t])
+    params, _, _ = convert_state_dict(
+        {k: v.numpy() for k, v in net.state_dict().items()},
+        jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32),
+                               shapes))
+    step = jax.jit(lambda prm, lrs, refs, st: jnet.apply(
+        prm, lrs, refs, st, method=JaxNet.forward_train))
+    st_j = jax_init_state(1, p, p, mid, num_frames=t)
+    st_t = init_stream_state(1, p, p, mid, num_frames=t, device="cpu")
+    results = []
+    for wi in range(2):
+        lrs, refs = lrs_all[:, wi:wi + t], refs_all[:, wi:wi + t]
+        out_j, st_j = step(params, lrs, refs, st_j)
+        out_t, st_t = net.forward_train(torch.from_numpy(lrs),
+                                        torch.from_numpy(refs), st_t)
+        results.append((np.asarray(out_j), out_t.detach().numpy(),
+                        {k: np.asarray(getattr(st_j, k)) for k in STATE_KEYS},
+                        {k: getattr(st_t, k).numpy() for k in STATE_KEYS}))
+    return results
+
+
+@pytest.mark.parametrize("window", [0, 1])
+def test_default_wiring_forward_train_matches_jax(default_train_run, window):
+    want, got, st_j, st_t = default_train_run[window]
+    assert got.shape == want.shape == (1, 64, 64, 3)
+    np.testing.assert_allclose(got, want, atol=2e-4)
+    for key in STATE_KEYS:
+        assert st_t[key].shape == st_j[key].shape, key
+        np.testing.assert_allclose(st_t[key], st_j[key], atol=2e-4,
+                                   err_msg=key)
 
 
 def test_forward_train_output_matches_jax(train_run):
