@@ -45,7 +45,25 @@ outside a checkout of the repository. Phases, each fatal on failure:
    every call of a further streamed window, and the calls of a new first
    window at the shapes the streamed window lacks (K1 from the low-res grid
    to the 2x one; K2 at batch 7);
-9. the training path at full width: RefVSR_MFID_8K trained as the JAX
+9. the serving path: ``serving.predictor.Predictor`` (RefVSR_MFID_8K,
+   seeded random weights, bf16) on a seeded 1080x1920 PNG pair that the
+   port's encoder writes, center-cropped to 720x1280: three ``predict``
+   calls with each kernel's launches counted, the output PNG decoded by the
+   port's reader and checked ((2880, 5120, 3), finite, non-constant), the
+   PNG decode and encode timed apart; then the K1 and K2 calls of one more
+   ``predict`` held against their plain versions;
+10. the pipelined stream (``pipeline_lanes`` = 2): first at a small input,
+   the tiny net (2 blocks, 8 channels, T = 7, f32) pipelined on the card
+   against the plain stream on the card and the pipelined one on the CPU
+   (one first window, one priming dispatch, three steady dispatches and the
+   flush), each emitted frame within 1e-4; then at full width, plain and
+   pipelined RefVSR_MFID_8K (bf16, 1080p in, 8K out) on the same frames,
+   in turn: ms per steady dispatch against ms per plain window, their
+   peaks, the launches of each dispatch, and each emitted frame against
+   the plain stream's (mean and max |difference| on the [0, 1] output
+   within PIPE_MEAN_LIMIT and PIPE_MAX_LIMIT); the K1 and K2 calls of the
+   flush dispatch held against their plain versions;
+11. the training path at full width: RefVSR_MFID_8K trained as the JAX
    package trains it (loss '1*L1_lf+0.1*MFID_ref' at relu4_4, f32, patch
    128, 7 frames, Adam with global-norm clipping and the CA schedule) on a
    seeded synthetic batch, at batch 2 instead of the config's 8 (batch 8
@@ -97,6 +115,21 @@ K2_LIBRARY_MAX_BYTES = 16e9
 # the training phases start from seeded random weights: no pretrained
 # SPyNet or VGG19 is read (the Trainer warns that they are absent)
 NO_ASSETS = dict(spynet_ckpt=None, vgg19_ckpt=None)
+# serving: a 1080p PNG pair (cropped to 720x1280 by the predictor), timed
+# over the calls after the first of SERVE_CALLS
+SERVE_HW = (1080, 1920)
+SERVE_CALLS = 3
+# the pipelined stream at full width: lanes, and the frames of the video
+# both streams run (one first window, then a priming dispatch and steady
+# ones; the plain stream's windows on the same frames)
+PIPE_LANES = 2
+PIPE_FRAMES = 6
+# how far a pipelined frame (bf16, batch-2 prop steps) may be from the
+# plain stream's on the [0, 1] output: mean |difference| and max. On the
+# H100 the two agreed bit for bit (cuDNN computes each lane of a batch-2
+# convolution as it computes one alone); the max allows 4 bf16 ulps at 1.0
+# should another build pick another algorithm for batch 2
+PIPE_MEAN_LIMIT, PIPE_MAX_LIMIT = 1e-4, 1.6e-2
 # K3 against its plain version at ragged shapes (H, W), C
 # (tile heights 8, 4 and 2 rows by C, tiles 64 pixels wide): mid-tile in
 # H and W at every C, one row narrower than a tile, and images of more
@@ -1031,6 +1064,289 @@ def phase_main_path(dev, card):
     return launches, windows, peak, in_path, stream_calls, first_calls
 
 
+def _scene(rng, h, w):
+    """A seeded smooth image with noise, (h, w, 3) in [0, 1]."""
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    base = np.stack([np.sin(7 * xx + 3 * yy), np.cos(5 * yy - 2 * xx),
+                     np.sin(4 * (xx + yy))], -1) * 0.4 + 0.5
+    return np.clip(base + rng.normal(0, 0.03, (h, w, 3)), 0, 1)
+
+
+def phase_serving(dev, card):
+    """The serving path: Predictor.predict on a seeded 1080p PNG pair, the
+    launches counted over SERVE_CALLS calls, the output checked, the PNG
+    work timed apart; then the K1/K2 calls of one more predict captured.
+    Returns (launches, summary, captured calls)."""
+    import tempfile
+
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.data.png import read_image, write_image
+    from refvsr_tpu_torch.models import matching as matching_mod
+    from refvsr_tpu_torch.ops import warp as warp_mod
+    from refvsr_tpu_torch.serving.predictor import Predictor
+
+    cfg = get_config("RefVSR_MFID_8K")
+    rng = np.random.default_rng(10)
+    calls = {"warp_sample": [], "argmax_matmul": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [f"{tmp}/{name}.png" for name in ("lr", "ref")]
+        for path in paths:
+            write_image(path, _scene(rng, *SERVE_HW))
+        out_path = f"{tmp}/out/sr.png"
+        pred = Predictor(cfg, device=dev)
+        check(pred.compute_dtype == torch.bfloat16 and pred.net.zero_flow,
+              "serving: the predictor is not the bf16 zero-flow net")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        ms, per_call = [], []
+        for _ in range(SERVE_CALLS):
+            before = read_launches()
+            t0 = time.perf_counter()
+            pred.predict(*paths, out_path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = read_launches()
+            per_call.append({k: after[k] - before[k] for k in after})
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        # the PNG work apart: the pair's decode, the output's encode
+        t0 = time.perf_counter()
+        imgs = [read_image(p) for p in paths]
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out = pred.enhance(*imgs)
+        enhance_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        write_image(out_path, out)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        sr = read_image(out_path)
+        with capturing(warp_mod, "warp_sample", calls["warp_sample"]), \
+                capturing(matching_mod, "argmax_matmul",
+                          calls["argmax_matmul"]):
+            pred.predict(*paths, out_path)
+        torch.cuda.synchronize()
+    # the predictor's crop: at most 720x1280, then down to a multiple of 8
+    want = tuple(4 * (min(v, m) // 8 * 8) for v, m in zip(SERVE_HW,
+                                                           (720, 1280)))
+    check(sr.shape == (*want, 3), f"serving: output shape {sr.shape}")
+    check(bool(np.isfinite(sr).all()), "serving: non-finite output")
+    std = float(sr.std())
+    check(std > 0, "serving: the output is constant")
+    for i, n in enumerate(per_call):
+        check((n["warp_sample"], n["argmax_matmul"]) == (8, 1)
+              and not any(v for k, v in n.items()
+                          if k not in ("warp_sample", "argmax_matmul")),
+              f"serving: predict {i} launched {n}, not K1 8 and K2 1")
+    check([len(v) for v in calls.values()] == [8, 1],
+          "serving: captured predict's calls != (8, 1)")
+    steady = ms[1:]
+    summary = dict(card=card, ms=ms, ms_per_predict=sum(steady) / len(steady),
+                   decode_ms=decode_ms, enhance_ms=enhance_ms,
+                   encode_ms=encode_ms, peak_bytes=peak, base_bytes=base,
+                   launches_per_predict=per_call[-1], output_std=std)
+    log(f"serving path: Predictor (RefVSR_MFID_8K bf16, zero flow) on a "
+        f"{SERVE_HW[0]}x{SERVE_HW[1]} PNG pair cropped to 720x1280 -> "
+        f"{sr.shape}, std {std:.4f}; " + ", ".join(f"{m:.1f}" for m in ms)
+        + f" ms per predict ({summary['ms_per_predict']:.1f} mean of calls "
+        f"2-{len(ms)}); apart: decode of the pair {decode_ms:.1f} ms, "
+        f"enhance {enhance_ms:.1f} ms, encode {encode_ms:.1f} ms; K1 "
+        f"{per_call[-1]['warp_sample']} and K2 "
+        f"{per_call[-1]['argmax_matmul']} launches per predict; peak "
+        f"allocated {peak / 2**30:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB held before  [{card}]")
+    del pred, out
+    torch.cuda.empty_cache()
+    return launches, summary, calls
+
+
+def _clamped_windows(lrs, refs, t):
+    """(d, window) of each output frame d of a (N, F, ...) video: frames
+    clip(d - t//2 .. d + t//2), the dataset's clamp at the clip's ends."""
+    f, c = lrs.shape[1], t // 2
+    for d in range(f):
+        idx = torch.arange(d - c, d + c + 1).clamp(0, f - 1).to(lrs.device)
+        yield d, lrs[:, idx], refs[:, idx]
+
+
+def _drive(runner, lrs, refs, t, on_dispatch=None, flush_ctx=None):
+    """Every (meta, sr) a runner emits over a video by submit and flush, in
+    order, each frame moved to the host; on_dispatch(kind, ms, metas) after
+    each call with its host ms around work that ends in a synchronize (kind:
+    the window's frame d, or "flush", run inside `flush_ctx`)."""
+    out = []
+
+    def timed(kind, fn):
+        t0 = time.perf_counter()
+        emitted = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if on_dispatch is not None:
+            on_dispatch(kind, ms, [m for m, _, _ in emitted])
+        out.extend((m, sr.cpu()) for m, sr, _ in emitted)
+    for d, wl, wr in _clamped_windows(lrs, refs, t):
+        timed(d, lambda: runner.submit(wl, wr, d == 0, meta=d))
+    with flush_ctx or contextlib.nullcontext():
+        timed("flush", runner.flush)
+    return out
+
+
+def _pipe_small(dev):
+    """Pipelined L = 2 on the card against plain on the card and pipelined
+    on the CPU, tiny net in f32: the largest difference from each."""
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.models.refvsr import build_refvsr
+    cfg = get_config("RefVSR_MFID_8K", num_blocks=2, mid_channels=8)
+    gen = torch.Generator().manual_seed(11)
+    lrs = torch.rand((1, 5, 32, 48, 3), generator=gen)
+    refs = torch.rand((1, 5, 32, 48, 3), generator=gen)
+    runs = {}
+    for name, lanes, d in (("cpu", PIPE_LANES, "cpu"),
+                           ("card", PIPE_LANES, dev), ("plain", 0, dev)):
+        net = build_refvsr(cfg.replace(pipeline_lanes=lanes), device="cpu",
+                           seed=3)
+        runner = StreamRunner(net, None, device=d, pipeline_lanes=lanes)
+        runs[name] = _drive(runner, lrs.to(d), refs.to(d), 7)
+    metas = [[m for m, _ in runs[k]] for k in ("card", "plain", "cpu")]
+    check(all(m == list(range(5)) for m in metas),
+          f"pipelined small: metas {metas}")
+    worst = {k: max(float((a.float() - b.float()).abs().max()) for (_, a),
+                    (_, b) in zip(runs["card"], runs[k]))
+             for k in ("plain", "cpu")}
+    check(all(v <= 1e-4 for v in worst.values()),
+          f"pipelined small: card vs plain / CPU {worst} > 1e-4")
+    log(f"pipelined small (L={PIPE_LANES}, RefVSR_MFID_8K wiring, 2 blocks, "
+        f"8 ch, T=7, 32x48, f32; first + prime + 3 steady + flush): card vs "
+        f"plain on the card {worst['plain']:.3e}, vs the CPU "
+        f"{worst['cpu']:.3e} (limit 1e-4)")
+    return worst
+
+
+def phase_pipelined(dev, card):
+    """The small agreement, then plain and pipelined RefVSR_MFID_8K at full
+    width on the same frames, in turn (plain first, each freed before the
+    next): ms, launches and emitted frames of every dispatch, peaks, and
+    each pipelined frame against plain's. The pipelined run's launches are
+    counted from just before it to just after; its flush dispatch's K1/K2
+    calls are captured. Returns (launches, summary, captured calls)."""
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.models import matching as matching_mod
+    from refvsr_tpu_torch.models.refvsr import build_refvsr
+    from refvsr_tpu_torch.ops import warp as warp_mod
+
+    small = _pipe_small(dev)
+    cfg = get_config("RefVSR_MFID_8K")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    lrs = torch.rand((N, PIPE_FRAMES, H, W, 3), generator=gen,
+                     device=dev).bfloat16()
+    refs = torch.rand((N, PIPE_FRAMES, H, W, 3), generator=gen,
+                      device=dev).bfloat16()
+    calls = {"warp_sample": [], "argmax_matmul": []}
+    runs = {}
+    for lanes in (0, PIPE_LANES):
+        net = build_refvsr(cfg.replace(pipeline_lanes=lanes), device=dev,
+                           dtype=torch.bfloat16, seed=0)
+        runner = StreamRunner(net, cfg.reset_branch, device=dev,
+                              compute_dtype=torch.bfloat16,
+                              pipeline_lanes=lanes)
+        dispatches = []
+        seen = {"warp_sample": 0, "argmax_matmul": 0}
+
+        def record(kind, ms, metas):
+            now = read_launches()
+            dispatches.append(dict(
+                kind=kind, ms=ms, emitted=metas,
+                peak_bytes=torch.cuda.max_memory_allocated() - base,
+                **{k: now[k] - seen[k] for k in seen}))
+            seen.update({k: now[k] for k in seen})
+        @contextlib.contextmanager
+        def flush_capture():
+            with capturing(warp_mod, "warp_sample", calls["warp_sample"]), \
+                    capturing(matching_mod, "argmax_matmul",
+                              calls["argmax_matmul"]):
+                yield
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        out = _drive(runner, lrs, refs, T, record,
+                     flush_capture() if lanes else None)
+        # the peak above what was held before, through the last window
+        # (the flush dispatch's captured inputs are not the path's)
+        runs[lanes] = dict(out=out, dispatches=dispatches,
+                           launches=read_launches(), base=base,
+                           peak=dispatches[-2]["peak_bytes"])
+        del runner, net
+        torch.cuda.empty_cache()
+
+    plain, piped = runs[0], runs[PIPE_LANES]
+    for name, r in (("plain", plain), ("pipelined", piped)):
+        n = r["launches"]
+        check(not any(v for k, v in n.items()
+                      if k not in ("warp_sample", "argmax_matmul")),
+              f"{name} stream launched a kernel off its path: {n}")
+        log(f"{name} stream, full width: " + "; ".join(
+            f"{d['kind']}: {d['ms']:.1f} ms, K1 {d['warp_sample']}, K2 "
+            f"{d['argmax_matmul']}, emits {d['emitted']}"
+            for d in r["dispatches"]) + f"  [{card}]")
+    # launches and emitted frames of each dispatch: plain, first then
+    # streamed windows; pipelined, first, L - 1 primes, steady, flush
+    want_plain = ([(16, 1, [0])] + [(10, 1, [d]) for d in
+                                    range(1, PIPE_FRAMES)] + [(0, 0, [])])
+    want_piped = ([(16, 1, [0])] + [(4, 1, [])] * (PIPE_LANES - 1)
+                  + [(6, 1, [d - PIPE_LANES + 1]) for d in
+                     range(PIPE_LANES, PIPE_FRAMES)]
+                  + [(6, 1, [PIPE_FRAMES - 1])])
+    for name, r, want in (("plain", plain, want_plain),
+                          ("pipelined", piped, want_piped)):
+        got = [(d["warp_sample"], d["argmax_matmul"], d["emitted"])
+               for d in r["dispatches"]]
+        check(got == want, f"{name} stream: (K1, K2, emitted) per "
+              f"dispatch {got} != {want}")
+    check([len(v) for v in calls.values()] == [6, 1],
+          "pipelined: captured flush dispatch's calls != (6, 1)")
+    diffs = []
+    for (m, a), (m_p, b) in zip(piped["out"], plain["out"]):
+        check(m == m_p and tuple(a.shape) == (N, 4 * H, 4 * W, 3),
+              f"pipelined frame {m}: shape {tuple(a.shape)}")
+        a, b = a.to(dev).float(), b.to(dev).float()
+        check(_finite(a), f"pipelined frame {m}: non-finite values")
+        d = (a - b).abs()
+        diffs.append(dict(frame=m, max=float(d.max()), mean=float(d.mean())))
+        del a, b, d
+    worst_max = max(d["max"] for d in diffs)
+    worst_mean = max(d["mean"] for d in diffs)
+    check(worst_mean <= PIPE_MEAN_LIMIT and worst_max <= PIPE_MAX_LIMIT,
+          f"pipelined vs plain: mean {worst_mean}, max {worst_max} "
+          f"(limits {PIPE_MEAN_LIMIT}, {PIPE_MAX_LIMIT})")
+    # steady: after the first steady dispatch; plain: after the first
+    # streamed window
+    steady = [d["ms"] for d in piped["dispatches"][PIPE_LANES + 1:-1]]
+    stream = [d["ms"] for d in plain["dispatches"][2:-1]]
+    summary = dict(
+        card=card, lanes=PIPE_LANES, small=small,
+        ms_per_dispatch=sum(steady) / len(steady),
+        ms_per_plain_window=sum(stream) / len(stream),
+        peak_bytes=piped["peak"], plain_peak_bytes=plain["peak"],
+        base_bytes=piped["base"],
+        dispatches=piped["dispatches"], plain_windows=plain["dispatches"],
+        diff_vs_plain=diffs)
+    log(f"pipelined stream (L={PIPE_LANES}, RefVSR_MFID_8K bf16, 1080p -> "
+        f"4320x7680): {summary['ms_per_dispatch']:.1f} ms per steady "
+        f"dispatch (mean of {len(steady)}) against "
+        f"{summary['ms_per_plain_window']:.1f} ms per plain window (mean of "
+        f"{len(stream)}); peak allocated {piped['peak'] / 2**30:.2f} GiB "
+        f"against {plain['peak'] / 2**30:.2f}, above the "
+        f"{piped['base'] / 2**30:.2f} GiB held before; vs plain per frame max "
+        f"{worst_max:.3e}, mean {worst_mean:.3e} (limits {PIPE_MAX_LIMIT}, "
+        f"{PIPE_MEAN_LIMIT})  [{card}]")
+    del lrs, refs, runs
+    torch.cuda.empty_cache()
+    return piped["launches"], summary, calls
+
+
 @contextlib.contextmanager
 def cudnn_tf32(on):
     before = torch.backends.cudnn.allow_tf32
@@ -1159,12 +1475,14 @@ def _shape(t):
     return "x".join(str(v) for v in t.shape)
 
 
-def path_cases(stream_calls, first_calls, train_calls):
+def path_cases(stream_calls, first_calls, train_calls, more_calls):
     """Each kernel against its plain version on the inputs the main paths
     gave it: every call of a streamed window, the first window's calls at
-    shapes the streamed window lacks, and the training step's calls (the
-    forward kernels once per shape, the backward kernels at every call).
-    Returns {kernel: (the calls its in-path numbers sum over, the rest)}."""
+    shapes the streamed window lacks, the training step's calls (the
+    forward kernels once per shape, the backward kernels at every call),
+    and the forward kernels' calls in `more_calls` ({path label: calls by
+    kernel}: one predict, one pipelined dispatch). Returns {kernel: (the
+    calls its in-path numbers sum over, the rest)}."""
     def k1(label, args, kw):
         return k1_case(label, *args, 2.0 ** -6 if args[0].dtype ==
                        torch.bfloat16 else 1e-5)
@@ -1182,14 +1500,20 @@ def path_cases(stream_calls, first_calls, train_calls):
         return [fn(f"{where} call {i}: {_shape(a[0])}, {_shape(a[1])}", a, kw)
                 for i, (a, kw) in enumerate(calls)]
 
+    def more(fn, name):
+        return [c for label, calls in more_calls.items()
+                for c in run(fn, label, calls[name])]
+
     return {
         "warp_sample": (run(k1, "forward_stream", stream_calls["warp_sample"]),
                         run(k1, "forward_first", first_calls["warp_sample"])
-                        + run(k1, "train step", train_calls["warp_sample"])),
+                        + run(k1, "train step", train_calls["warp_sample"])
+                        + more(k1, "warp_sample")),
         "argmax_matmul": (
             run(k2, "forward_stream", stream_calls["argmax_matmul"]),
             run(k2, "forward_first", first_calls["argmax_matmul"])
-            + run(k2, "train step", train_calls["argmax_matmul"])),
+            + run(k2, "train step", train_calls["argmax_matmul"])
+            + more(k2, "argmax_matmul")),
         "warp_sample_backward": (
             run(k1_bwd, "train step", train_calls["warp_sample_backward"]),
             []),
@@ -1330,14 +1654,19 @@ def main():
     torch.cuda.empty_cache()
     launches["stream"], windows, peak, in_path, stream_calls, first_calls = \
         phase_main_path(dev, card)
+    launches["serving"], serving, serve_calls = phase_serving(dev, card)
+    launches["pipelined"], pipelined, pipe_calls = phase_pipelined(dev, card)
     with cudnn_tf32(True):
         launches["train"], train, in_step, train_calls = phase_training(
             dev, card)
-    on_path = path_cases(stream_calls, first_calls, train_calls)
+    on_path = path_cases(stream_calls, first_calls, train_calls,
+                         {"predict": serve_calls,
+                          "pipelined dispatch": pipe_calls})
     kernels = kernels_line(synthetic, on_path, in_path, in_step, launches,
                            bench)
     log(json.dumps(dict(main_path=dict(card=card, windows=windows,
-                                       peak_bytes=peak), training=train)))
+                                       peak_bytes=peak), serving=serving,
+                        pipelined=pipelined, training=train)))
     log(json.dumps(dict(kernels=kernels)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

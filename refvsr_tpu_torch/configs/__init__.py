@@ -2,13 +2,22 @@
 
 Counterpart of ``refvsr_tpu/configs/__init__.py``: the same variant names,
 the same defaults and the same scale rule (``_apply_scale_rules``), holding
-the fields the streaming path, the loss and the trainer read."""
+the fields the streaming path, the serving predictor, the loss and the
+trainer read."""
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
+
+
+@dataclass
+class EvalConfig:
+    # serving flags (refvsr_tpu/configs/__init__.py:22-26): is_gradio runs
+    # the net with zero flows in place of SPyNet's (RefVSR.py:183-191)
+    is_gradio: bool = False
+    is_replicate: bool = False
 
 
 @dataclass
@@ -42,6 +51,11 @@ class Config:
     # (utils/convert.load_pretrained_assets); an absent file warns
     spynet_ckpt: Optional[str] = "./ckpt/SPyNet.pytorch"
     vgg19_ckpt: Optional[str] = "./ckpt/VGG19.pytorch"
+    # streaming: L > 1 runs the pipelined lanes (models/refvsr.py), whose
+    # outputs equal the plain stream's, L - 1 windows late; 0 = plain
+    pipeline_lanes: int = 0
+
+    EVAL: EvalConfig = field(default_factory=EvalConfig)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

@@ -8,7 +8,19 @@ math (``_tail``). Two entry points serve a stream: ``forward_first`` once
 per clip (or after a branch reset) and ``forward_stream`` once per window.
 ``forward_train`` is one training window: both branches in full, the
 aligned features recomputed inside every propagation step, SPyNet (frozen)
-under ``torch.no_grad()``. The pipelined lanes are not ported yet.
+under ``torch.no_grad()``.
+
+Pipelined streaming (``pipeline_lanes`` L > 1): the B = T - T//2 backward
+steps of each output frame are spread over L consecutive dispatches, so one
+dispatch (``forward_stream_prime`` for the L - 1 windows after
+``forward_first``, then ``forward_stream_pipelined``) runs P = B/L
+propagation steps on a batch of L chains instead of B steps on one. Each
+output equals ``forward_stream``'s for the same frame and comes out L - 1
+dispatches later. The aligned rings and conf/index tails then hold B + L - 1
+frames, and the L - 1 unfinished chains ride in the state (``pipe_*``).
+
+``zero_flow`` (the serving path, ``EVAL.is_gradio``) replaces SPyNet's
+flows by zeros; the warps still run, on zero flows.
 
 Reference quirk kept: the intra-window forward branch warps the already
 warped low-res ``feat_prop`` onto the 2x grid for ``feat_prop_up``
@@ -18,10 +30,13 @@ Every zeros-padding warp goes through kernel K1 (``ops/warp.warp``): two per
 propagation step, so 10 per ``forward_stream`` window (4 backward steps + the
 forward step) and 16 per ``forward_first`` at T = 7. Every matching goes
 through kernel K2: one batch-T launch per ``forward_first`` and one batch-1
-launch per ``forward_stream``."""
+launch per ``forward_stream``. A pipelined dispatch at L = 2, T = 7 runs 6
+warps (two sub-steps of batch 2, then the forward step; 4 when priming) and
+one batch-1 matching."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -49,7 +64,11 @@ class StreamState:
     the tail frames center..T-1, shifted likewise. aligned_tail and
     aligned_up_tail: the carry-independent RAP half (encode_ref + aa1 + aa2)
     of the tail frames, as RING buffers: logical tail frame i lives in slot
-    (tail_base + i) % TT along dim 1."""
+    (tail_base + i) % TT along dim 1. A state without tails (from
+    ``init_stream_state``) makes ``forward_stream`` match and encode every
+    tail frame. pipe_feat/pipe_feat_up/pipe_conf: the pipelined stream's
+    unfinished backward chains (lanes 0..L-2 stacked along the batch),
+    None for the plain stream."""
     feat_prop: torch.Tensor       # (N, h, w, C)
     feat_prop_up: torch.Tensor    # (N, 2h, 2w, C)
     conf_prop: torch.Tensor       # (N, h, w, 1)
@@ -61,6 +80,9 @@ class StreamState:
     aligned_tail: Optional[torch.Tensor] = None     # (N, TT, h, w, C)
     aligned_up_tail: Optional[torch.Tensor] = None  # (N, TT, 2h, 2w, C)
     tail_base: int = 0
+    pipe_feat: Optional[torch.Tensor] = None      # ((L-1)*N, h, w, C)
+    pipe_feat_up: Optional[torch.Tensor] = None   # ((L-1)*N, 2h, 2w, C)
+    pipe_conf: Optional[torch.Tensor] = None      # ((L-1)*N, h, w, 1)
 
 
 def init_stream_state(n: int, h: int, w: int, mid_channels: int,
@@ -98,16 +120,23 @@ def _fusion_pair(cin, feat0, mid):
 
 
 class RefVSRNet(nn.Module):
-    """The 'RefVSR' architecture (config_RefVSR_MFID.py:41-47), NHWC."""
+    """The 'RefVSR' architecture (config_RefVSR_MFID.py:41-47), NHWC.
+
+    zero_flow: zero flows in place of SPyNet's (the serving path); SPyNet's
+    parameters stay, so a state dict loads the same either way.
+    pipeline_lanes: L > 1 enables the pipelined stream (module docstring);
+    0 or 1 is the plain stream. Neither adds a parameter."""
 
     def __init__(self, scale: int = 4, num_blocks: int = 30,
                  mid_channels: int = 48, matching_ksize: int = 2,
-                 flag_HD_in: bool = False):
+                 flag_HD_in: bool = False, zero_flow: bool = False,
+                 pipeline_lanes: int = 0):
         super().__init__()
         mid = mid_channels
         self.scale, self.num_blocks, self.mid_channels = (scale, num_blocks,
                                                           mid)
         self.matching_ksize, self.flag_HD_in = matching_ksize, flag_HD_in
+        self.zero_flow, self.pipeline_lanes = zero_flow, pipeline_lanes
         self.FlowNet = SPyNet()
         self.feature_match = FeatureMatching(scale=scale,
                                              flag_HD_in=flag_HD_in)
@@ -150,7 +179,12 @@ class RefVSRNet(nn.Module):
 
     def compute_flows(self, lrs):
         """lrs (N, T, H, W, 3) -> (forward_flows, backward_flows), each
-        (N, T-1, H, W, 2); one SPyNet call per frame pair."""
+        (N, T-1, H, W, 2); one SPyNet call per frame pair, or zeros
+        without SPyNet under zero_flow (RefVSR.py:183-191)."""
+        if self.zero_flow:
+            n, t, h, w = lrs.shape[:4]
+            z = lrs.new_zeros((n, t - 1, h, w, 2))
+            return z, z
         fwd = [self.FlowNet(lrs[:, j + 1], lrs[:, j])     # RefVSR.py:184
                for j in range(lrs.shape[1] - 1)]
         bwd = [self.FlowNet(lrs[:, j], lrs[:, j + 1])     # RefVSR.py:189
@@ -178,17 +212,20 @@ class RefVSRNet(nn.Module):
         return (self.aa1(lr_down, ref, index, ref_feat_down),
                 self.aa2(lr, ref, index, ref_feat))
 
-    def compute_aligned_scan(self, lrs, refs, indices):
+    def compute_aligned_scan(self, lrs, refs, indices, front: int = 0):
         """compute_aligned for each frame of a (N, T, ...) window, one frame
-        at a time, written into (N, T, ...) buffers."""
+        at a time, written into (N, front + T, ...) buffers whose first
+        `front` slots are zeros."""
         outs = None
         for i in range(lrs.shape[1]):
             a, au = self.compute_aligned(lrs[:, i], refs[:, i], indices[:, i])
             if outs is None:
-                outs = [x.new_empty((x.shape[0], lrs.shape[1], *x.shape[1:]))
-                        for x in (a, au)]
-            outs[0][:, i] = a
-            outs[1][:, i] = au
+                outs = [x.new_empty((x.shape[0], front + lrs.shape[1],
+                                     *x.shape[1:])) for x in (a, au)]
+                for o in outs:
+                    o[:, :front].zero_()
+            outs[0][:, front + i] = a
+            outs[1][:, front + i] = au
         return outs
 
     def rap(self, conf, conf_prop, feat_prop, feat_prop_up, aligned,
@@ -346,31 +383,62 @@ class RefVSRNet(nn.Module):
     def forward_first(self, lrs, refs):
         """First window of a clip: full branches, state saved at the center
         step. lrs (N, T, h, w, 3), refs (N, T, hr, wr, 3). Returns
-        (out (N, s*h, s*w, 3) clamped to [0, 1], state, conf_vis)."""
+        (out (N, s*h, s*w, 3) clamped to [0, 1], state, conf_vis).
+
+        With pipeline_lanes L > 1 the tails get L - 1 zero frames in front
+        (logical 0..L-2, frames "before" the clip, read only by lanes whose
+        outputs the priming dispatches drop), so that after the L - 1
+        priming dispatches this window's first tail frame sits at logical
+        0 when the first steady dispatch needs it; the state also carries
+        L - 1 zero chains."""
         n, t, h, w = lrs.shape[:4]
         state = init_stream_state(n, h, w, self.mid_channels, lrs.dtype,
                                   num_frames=t, device=lrs.device)
         center = t // 2
+        ext = 0
+        if self.pipeline_lanes > 1:
+            self._pipeline_plan(t)
+            ext = self.pipeline_lanes - 1
         fwd_flows, bwd_flows = self.compute_flows(lrs)
         confs, indices = self.compute_matching(lrs, refs)
         aligneds, aligneds_up = self.compute_aligned_scan(
-            lrs[:, center:], refs[:, center:], indices[:, center:])
-        bw_carry = self._backward_branch(lrs, bwd_flows, confs, 0, aligneds,
-                                         aligneds_up, aligned_offset=center)
+            lrs[:, center:], refs[:, center:], indices[:, center:],
+            front=ext)
+        bw_carry = self._backward_branch(lrs, bwd_flows, confs, 0,
+                                         aligneds[:, ext:],
+                                         aligneds_up[:, ext:],
+                                         aligned_offset=center)
         fw_carry, _ = self._forward_branch_full(state, lrs, refs, fwd_flows,
                                                 confs, indices)
         out = self._finalize(lrs[:, center], bw_carry, fw_carry).clamp(0, 1)
+
+        def front_pad(a):
+            if not ext:
+                return a
+            return torch.cat([a.new_zeros((n, ext, *a.shape[2:])), a], 1)
+        pipe = {}
+        if ext:
+            pipe = dict(pipe_feat=lrs.new_zeros((ext * n, h, w,
+                                                 self.mid_channels)),
+                        pipe_feat_up=lrs.new_zeros((ext * n, 2 * h, 2 * w,
+                                                    self.mid_channels)),
+                        pipe_conf=lrs.new_zeros((ext * n, h, w, 1)))
         new_state = StreamState(
             feat_prop=fw_carry[0], feat_prop_up=fw_carry[1],
             conf_prop=fw_carry[2], flow=fwd_flows[:, center],
             flows_fwd=fwd_flows, flows_bwd=bwd_flows,
-            conf_tail=confs[:, center:], index_tail=indices[:, center:],
-            aligned_tail=aligneds, aligned_up_tail=aligneds_up, tail_base=0)
+            conf_tail=front_pad(confs[:, center:]),
+            index_tail=front_pad(indices[:, center:]),
+            aligned_tail=aligneds, aligned_up_tail=aligneds_up, tail_base=0,
+            **pipe)
         return out, new_state, (bw_carry[2], fw_carry[2], confs[:, center])
 
     def _shift_cached_flows(self, lrs, state: StreamState):
         """Window flows from the previous window's, shifted by one, plus one
-        new SPyNet pair (values identical to recomputing all of them)."""
+        new SPyNet pair (values identical to recomputing all of them); the
+        state's zeros unchanged under zero_flow."""
+        if self.zero_flow:
+            return state.flows_fwd, state.flows_bwd
         last, prev = lrs[:, -1], lrs[:, -2]
         fwd = torch.cat([state.flows_fwd[:, 1:],
                          self.FlowNet(last, prev)[:, None]], 1)
@@ -378,27 +446,44 @@ class RefVSRNet(nn.Module):
                          self.FlowNet(prev, last)[:, None]], 1)
         return fwd, bwd
 
-    def forward_stream(self, lrs, refs, state: StreamState):
-        """Streaming window: full backward branch on cached matching and
-        aligned features, forward branch only at the center frame from the
-        carried state (RefVSR.py:173-176,246-247). Returns (out, new_state,
-        conf_vis). The aligned rings of `state` are updated in place."""
-        t = lrs.shape[1]
-        center = t // 2
-        fwd_flows, bwd_flows = self._shift_cached_flows(lrs, state)
-        new_conf, new_index = self.compute_matching(lrs[:, -1:], refs[:, -1:])
-        confs = torch.cat([state.conf_tail[:, 1:], new_conf], 1)
-        indices = torch.cat([state.index_tail[:, 1:], new_index], 1)
+    def _stream_tails(self, lrs, refs, state: StreamState):
+        """The tails moved on by one frame: (confs, indices, aligneds,
+        aligneds_up, base). A warm state matches and encodes only the
+        newest frame; a state without tails matches and encodes frames
+        center..T-1 and starts the ring at base 0."""
+        center = lrs.shape[1] // 2
+        if state.conf_tail is not None:
+            new_conf, new_index = self.compute_matching(lrs[:, -1:],
+                                                        refs[:, -1:])
+            confs = torch.cat([state.conf_tail[:, 1:], new_conf], 1)
+            indices = torch.cat([state.index_tail[:, 1:], new_index], 1)
+        else:
+            confs, indices = self.compute_matching(lrs[:, center:],
+                                                   refs[:, center:])
+        if state.aligned_tail is None:
+            aligneds, aligneds_up = self.compute_aligned_scan(
+                lrs[:, center:], refs[:, center:], indices)
+            return confs, indices, aligneds, aligneds_up, 0
         # ring update: the newest frame's aligned features overwrite the
         # expired slot IN PLACE (the caches are ~4 GB at 1080p input; a
         # shifted copy would double that every window) and the base advances
         na, nau = self.compute_aligned(lrs[:, -1], refs[:, -1],
                                        indices[:, -1])
         aligneds, aligneds_up = state.aligned_tail, state.aligned_up_tail
-        tt = aligneds.shape[1]
         aligneds[:, state.tail_base] = na
         aligneds_up[:, state.tail_base] = nau
-        base = (state.tail_base + 1) % tt
+        base = (state.tail_base + 1) % aligneds.shape[1]
+        return confs, indices, aligneds, aligneds_up, base
+
+    def forward_stream(self, lrs, refs, state: StreamState):
+        """Streaming window: full backward branch on cached matching and
+        aligned features, forward branch only at the center frame from the
+        carried state (RefVSR.py:173-176,246-247). Returns (out, new_state,
+        conf_vis). The aligned rings of `state` are updated in place."""
+        center = lrs.shape[1] // 2
+        fwd_flows, bwd_flows = self._shift_cached_flows(lrs, state)
+        confs, indices, aligneds, aligneds_up, base = self._stream_tails(
+            lrs, refs, state)
 
         bw_carry = self._backward_branch(lrs, bwd_flows, confs, center,
                                          aligneds, aligneds_up,
@@ -416,16 +501,116 @@ class RefVSRNet(nn.Module):
             tail_base=base)
         return out, new_state, (bw_carry[2], fw_carry[2], confs[:, 0])
 
+    # ---------------- pipelined streaming ----------------
+
+    def _pipeline_plan(self, t: int):
+        """(L, P, TT, center) of the pipelined stream at window length t:
+        P = B/L steps per dispatch over B = t - t//2 backward steps, tails
+        of TT = B + L - 1 frames."""
+        lanes, center = self.pipeline_lanes, t // 2
+        b_steps = t - center
+        if lanes <= 1 or b_steps % lanes:
+            raise ValueError(f"pipeline_lanes={lanes} must be > 1 and "
+                             f"divide the {b_steps} backward steps")
+        if center - lanes + 1 < 0:
+            raise ValueError(f"pipeline_lanes={lanes} needs T >= "
+                             f"{2 * lanes - 1}, not {t}")
+        return lanes, b_steps // lanes, b_steps + lanes - 1, center
+
+    def _pipeline_dispatch(self, lrs, refs, state: StreamState, emit: bool):
+        """One pipelined dispatch at window center d: move the tails on by
+        one frame (in place, as forward_stream), run P propagation steps on
+        a batch of the L chains, and, when `emit`, finish the oldest chain
+        into output frame d - (L-1).
+
+        Lane l (the chain of output d - l) takes its steps l*P .. l*P+P-1
+        here: at sub-step p, with off = l*(P+1) + p, it reads lr and the
+        backward flow at window index 2*center - off (zero flow at off 0,
+        the chain's anchor), conf at logical TT-1-off and aligned features
+        at ring slot (base + TT-1-off) % TT: the values forward_stream's
+        chain for that output reads."""
+        n, t = lrs.shape[:2]
+        lanes, p_steps, tt, center = self._pipeline_plan(t)
+        if (state.pipe_feat is None or state.aligned_tail is None
+                or state.aligned_tail.shape[1] != tt):
+            raise ValueError("the state's tails are not pipeline-sized: "
+                             "start with forward_first on a net with "
+                             "pipeline_lanes > 1")
+        fwd_flows, bwd_flows = self._shift_cached_flows(lrs, state)
+        confs, indices, aligneds, aligneds_up, base = self._stream_tails(
+            lrs, refs, state)
+
+        # lane 0 starts a new chain; lanes 1..L-1 continue the state's
+        carry = tuple(torch.cat([torch.zeros_like(a), b], 0) for a, b in (
+            (state.feat_prop, state.pipe_feat),
+            (state.feat_prop_up, state.pipe_feat_up),
+            (state.conf_prop, state.pipe_conf)))
+        no_flow = torch.zeros_like(state.flow)
+        for p in range(p_steps):
+            lane_x = []
+            for lane in range(lanes):
+                off = lane * (p_steps + 1) + p
+                rel = 2 * center - off
+                slot = (base + tt - 1 - off) % tt
+                lane_x.append((lrs[:, rel], confs[:, tt - 1 - off],
+                               no_flow if off == 0 else bwd_flows[:, rel],
+                               aligneds[:, slot], aligneds_up[:, slot]))
+            x = {k: torch.cat(v, 0) for k, v in zip(
+                ("lr", "conf", "flow", "aligned", "aligned_up"),
+                zip(*lane_x))}
+            carry = self._prop_step("backward", False, carry, x)
+
+        keep = (lanes - 1) * n
+        fwi = center - lanes + 1
+        # the unfinished chains are copied out, so that the finished one's
+        # memory goes with this dispatch
+        moved = dict(flow=fwd_flows[:, fwi], flows_fwd=fwd_flows,
+                     flows_bwd=bwd_flows, conf_tail=confs,
+                     index_tail=indices, aligned_tail=aligneds,
+                     aligned_up_tail=aligneds_up, tail_base=base,
+                     pipe_feat=carry[0][:keep].clone(),
+                     pipe_feat_up=carry[1][:keep].clone(),
+                     pipe_conf=carry[2][:keep].clone())
+        if not emit:
+            # priming: the oldest lane's chain began before the clip; drop
+            # it and keep the forward carry
+            return dataclasses.replace(state, **moved)
+        bw_carry = tuple(c[keep:] for c in carry)
+        # the emitted frame's conf and aligned features sit at logical 0,
+        # ring slot `base`
+        fw_carry = self._forward_step0(
+            state, lrs[:, fwi], confs[:, 0], aligned=aligneds[:, base],
+            aligned_up=aligneds_up[:, base])
+        out = self._finalize(lrs[:, fwi], bw_carry, fw_carry).clamp(0, 1)
+        new_state = StreamState(feat_prop=fw_carry[0],
+                                feat_prop_up=fw_carry[1],
+                                conf_prop=fw_carry[2], **moved)
+        return out, new_state, (bw_carry[2], fw_carry[2], confs[:, 0])
+
+    def forward_stream_prime(self, lrs, refs, state: StreamState):
+        """Priming dispatch (the L - 1 windows after forward_first): moves
+        the tails and the chains on, emits nothing. Returns the state."""
+        return self._pipeline_dispatch(lrs, refs, state, emit=False)
+
+    def forward_stream_pipelined(self, lrs, refs, state: StreamState):
+        """Steady pipelined dispatch at window center d: returns (out,
+        new_state, conf_vis) for output frame d - (L-1), equal to
+        forward_stream's for that frame."""
+        return self._pipeline_dispatch(lrs, refs, state, emit=True)
+
 
 def build_refvsr(config, device="cuda", dtype=torch.float32,
                  seed: int = 0) -> RefVSRNet:
-    """A RefVSRNet for `config` with seeded random weights, cast to `dtype`
-    and placed on `device` (the card unless the caller asks for the CPU)."""
+    """A RefVSRNet for `config` (zero flows under ``EVAL.is_gradio``, its
+    ``pipeline_lanes``) with seeded random weights, cast to `dtype` and
+    placed on `device` (the card unless the caller asks for the CPU)."""
     from refvsr_tpu_torch.utils.precision import cast_floating
     dev = resolve_device(device)
     net = RefVSRNet(scale=config.scale, num_blocks=config.num_blocks,
                     mid_channels=config.mid_channels,
                     matching_ksize=config.matching_ksize,
-                    flag_HD_in=config.flag_HD_in)
+                    flag_HD_in=config.flag_HD_in,
+                    zero_flow=config.EVAL.is_gradio,
+                    pipeline_lanes=config.pipeline_lanes)
     init_weights(net, torch.Generator().manual_seed(seed))
     return cast_floating(net.to(dev), dtype).eval()

@@ -4,7 +4,8 @@
 ``flax_to_torch_keymap`` names (after its match0 bias fix-up), for the tiny
 net and for RefVSR_MFID_8K's full widths, and the port's net must take them
 with ``load_state_dict(strict=True)``. No module of the port, nor
-chip_smoke.py, may import jax, flax or refvsr_tpu."""
+chip_smoke.py or tests/test_torch_cuda.py, may import jax, flax or
+refvsr_tpu, nor PIL, cv2 or imageio, which the card's machine lacks."""
 
 import ast
 from pathlib import Path
@@ -90,14 +91,24 @@ def test_build_refvsr_is_seeded():
 
 
 def _port_files():
+    """Every module of the port, and what runs on the card's machine,
+    which has neither JAX nor PIL, cv2 or imageio."""
     files = sorted((ROOT / "refvsr_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py"]
+
+
+def test_port_files_include_the_serving_slice():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"refvsr_tpu_torch/data/png.py",
+            "refvsr_tpu_torch/serving/predictor.py",
+            "refvsr_tpu_torch/eval/stream.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
-    banned = {"jax", "jaxlib", "flax", "refvsr_tpu"}
+    banned = {"jax", "jaxlib", "flax", "refvsr_tpu", "PIL", "cv2",
+              "imageio"}
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]

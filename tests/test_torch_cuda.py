@@ -32,7 +32,14 @@ end mid-tile in both H and W (the tile height is 8, 4 or 2 rows by C, the
 tile width 64 pixels), a single row narrower than a tile, images of more
 tiles than the card holds blocks (each block walks several tiles and its
 halo ring wraps), and the model's 1080x1920x48. K4 bitwise, out-of-range
-indices clamped."""
+indices clamped.
+
+The serving slice: the PNG codec round-trips exactly on this machine's
+zlib and numpy (no card needed: it also runs on the CPU); K1 at batch 2 on
+zero flows (a pipelined dispatch's lanes) against its plain version; and
+the ``Predictor`` on the card against its CPU run of the same seeded
+weights, both in f32 with TF32 off, within the 1e-3 that ``chip_smoke.py``
+allows the stream's card-vs-CPU check."""
 
 import numpy as np
 import pytest
@@ -44,6 +51,9 @@ from refvsr_tpu_torch.ops.kernels.argmax_matmul import (
 from refvsr_tpu_torch.bench.microbench_conv import (envelope_ratio,
                                                     make_inputs)
 from refvsr_tpu_torch.bench.ties import tied_rows
+from refvsr_tpu_torch.configs import get_config
+from refvsr_tpu_torch.data.png import (decode_png, encode_png, read_image,
+                                       write_image)
 from refvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_bias,
                                                   conv3x3_bias_plain)
 from refvsr_tpu_torch.ops.kernels.gather_rows import (gather_rows,
@@ -51,6 +61,7 @@ from refvsr_tpu_torch.ops.kernels.gather_rows import (gather_rows,
 from refvsr_tpu_torch.ops.kernels.warp_sample import (
     warp_coords, warp_sample, warp_sample_backward,
     warp_sample_backward_plain, warp_sample_plain)
+from refvsr_tpu_torch.serving.predictor import Predictor
 
 
 @pytest.fixture
@@ -489,3 +500,43 @@ def test_gather_kernel_matches_plain(gen, cuda_device, rows, lanes, points,
     assert gather_rows.launches == before + 1
     assert torch.equal(got, gather_rows_plain(tab, idx))
     assert torch.equal(got[0], tab[0])
+
+
+def test_png_round_trip(gen):
+    img = gen.integers(0, 256, (33, 47, 3), dtype=np.uint8)
+    assert np.array_equal(decode_png(encode_png(img)), img)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,up", [(49, False), (48, True)])
+def test_warp_kernel_batch2_zero_flow(gen, cuda_device, c, up):
+    """The pipelined dispatch's two lanes on the serving path's zero flows:
+    the feature warp (49 channels) and the UP warp onto the 2x grid."""
+    h, w = 24, 40
+    x = torch.from_numpy(gen.standard_normal((2, h, w, c)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    ho, wo = (2 * h, 2 * w) if up else (h, w)
+    flow = torch.zeros((2, ho, wo, 2), device=cuda_device,
+                       dtype=torch.bfloat16)
+    before = warp_sample.launches
+    got = warp_sample(x, flow)
+    assert warp_sample.launches == before + 1
+    want = warp_sample_plain(x, flow)
+    assert got.shape == (2, ho, wo, c)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -6 * float(x.float().abs().max())
+    # each lane is computed as if it were alone
+    assert torch.equal(got[1:], warp_sample(x[1:], flow[1:]))
+
+
+@pytest.mark.cuda
+def test_predictor_card_matches_cpu(cuda_device, tmp_path, gen):
+    cfg = get_config("RefVSR_MFID_8K", num_blocks=2, mid_channels=8)
+    for name in ("lr", "ref"):
+        write_image(tmp_path / f"{name}.png", gen.random((66, 83, 3)))
+    lr, ref = read_image(tmp_path / "lr.png"), read_image(tmp_path / "ref.png")
+    outs = [Predictor(cfg, device=d, compute_dtype=torch.float32).enhance(
+        lr, ref) for d in ("cpu", cuda_device)]
+    assert outs[1].shape == (4 * 64, 4 * 80, 3)
+    assert np.isfinite(outs[1]).all()
+    assert float(np.abs(outs[0] - outs[1]).max()) <= 1e-3

@@ -12,7 +12,12 @@ through ~60 layers).
 The default ``RefVSR_MFID`` wiring (flag_HD_in False, matching_ksize 2,
 refs at 2x the LR size) runs beside it at the same size and tolerance. Its
 weights are the port's seeded init, carried to the JAX net by the JAX
-package's ``convert_state_dict``, and the JAX entry points run jitted."""
+package's ``convert_state_dict``, and the JAX entry points run jitted.
+
+``forward_stream`` on a state without tails (``init_stream_state``) matches
+and encodes frames center..T-1 and starts its ring at base 0, as the JAX
+net does; its output and state agree with the JAX net's at the same
+tolerance."""
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +31,8 @@ from refvsr_tpu.utils.convert import convert_state_dict
 from refvsr_tpu_torch.configs import get_config
 from refvsr_tpu_torch.eval.stream import StreamRunner
 from refvsr_tpu_torch.models.blocks import init_weights
-from refvsr_tpu_torch.models.refvsr import RefVSRNet, build_refvsr
+from refvsr_tpu_torch.models.refvsr import (RefVSRNet, build_refvsr,
+                                            init_stream_state)
 from refvsr_tpu_torch.utils.convert import params_from_jax
 
 torch.set_num_threads(2)
@@ -43,21 +49,29 @@ def _np_tree(tree):
 
 
 @pytest.fixture(scope="module")
-def slice_run():
+def hd_nets():
+    """The HD-in wiring's JAX net, its parameters and the port's net
+    holding them."""
+    rng = np.random.default_rng(5)
+    x = jnp.asarray(rng.random((N, T, H, W, 3)).astype(np.float32))
+    jnet = JaxNet(scale=4, num_blocks=BLOCKS, mid_channels=MID,
+                  matching_ksize=KS, flag_HD_in=True)
+    params = jnet.init(jax.random.PRNGKey(3), x, x,
+                       jax_init_state(N, H, W, MID, num_frames=T))
+    net = RefVSRNet(scale=4, num_blocks=BLOCKS, mid_channels=MID,
+                    matching_ksize=KS, flag_HD_in=True)
+    net.load_state_dict(params_from_jax(_np_tree(params)), strict=True)
+    return jnet, params, net
+
+
+@pytest.fixture(scope="module")
+def slice_run(hd_nets):
     """JAX and port outputs and states for three windows, computed once."""
     rng = np.random.default_rng(5)
     frames = T + 2
     lrs_all = rng.random((N, frames, H, W, 3)).astype(np.float32)
     refs_all = rng.random((N, frames, H, W, 3)).astype(np.float32)
-    jnet = JaxNet(scale=4, num_blocks=BLOCKS, mid_channels=MID,
-                  matching_ksize=KS, flag_HD_in=True)
-    params = jnet.init(jax.random.PRNGKey(3), jnp.asarray(lrs_all[:, :T]),
-                       jnp.asarray(refs_all[:, :T]),
-                       jax_init_state(N, H, W, MID, num_frames=T))
-
-    net = RefVSRNet(scale=4, num_blocks=BLOCKS, mid_channels=MID,
-                    matching_ksize=KS, flag_HD_in=True)
-    net.load_state_dict(params_from_jax(_np_tree(params)), strict=True)
+    jnet, params, net = hd_nets
     runner = StreamRunner(net, reset_branch=None, device="cpu")
 
     results = []
@@ -126,6 +140,43 @@ def default_run():
         results.append((np.asarray(out_j, np.float32), out_t, st_j, st_t,
                         int(st.tail_base), runner.state.tail_base))
     return results
+
+
+@pytest.fixture(scope="module")
+def cold_run(hd_nets):
+    """forward_stream from init_stream_state (no tails, zero carry), JAX
+    and port, on the HD-in wiring: (JAX out, port out, JAX state, port
+    state, JAX base, port base)."""
+    rng = np.random.default_rng(7)
+    lrs = rng.random((N, T, H, W, 3)).astype(np.float32)
+    refs = rng.random((N, T, H, W, 3)).astype(np.float32)
+    jnet, params, net = hd_nets
+    out_j, st_j, _ = jax.jit(lambda p, a, b: jnet.apply(
+        p, a, b, jax_init_state(N, H, W, MID, num_frames=T),
+        method=JaxNet.forward_stream))(params, lrs, refs)
+    with torch.no_grad():
+        out_t, st_t, _ = net.forward_stream(
+            torch.from_numpy(lrs), torch.from_numpy(refs),
+            init_stream_state(N, H, W, MID, num_frames=T, device="cpu"))
+    keys = STATE_KEYS + ("conf_tail",)
+    return (np.asarray(out_j, np.float32), out_t.numpy(),
+            {k: np.asarray(getattr(st_j, k), np.float32) for k in keys},
+            {k: getattr(st_t, k).numpy() for k in keys},
+            int(st_j.tail_base), st_t.tail_base)
+
+
+def test_cold_stream_output_matches_jax(cold_run):
+    out_j, out_t, *_ = cold_run
+    assert out_t.shape == (N, 4 * H, 4 * W, 3)
+    np.testing.assert_allclose(out_t, out_j, atol=ATOL)
+
+
+@pytest.mark.parametrize("key", STATE_KEYS + ("conf_tail",))
+def test_cold_stream_state_matches_jax(cold_run, key):
+    _, _, st_j, st_t, base_j, base_t = cold_run
+    assert base_t == base_j == 0
+    assert st_t[key].shape == st_j[key].shape
+    np.testing.assert_allclose(st_t[key], st_j[key], atol=ATOL)
 
 
 @pytest.mark.parametrize("window", [0, 1, 2])
