@@ -70,13 +70,33 @@ outside a checkout of the repository. Phases, each fatal on failure:
    does not fit one card). One ``Trainer.iteration`` (9 optimizer steps)
    with the four kernels' launches counted; then one more step traced by
    ``torch.profiler`` (where the step's time goes), each kernel held
-   against its plain version on the inputs that step gave it.
+   against its plain version on the inputs that step gave it;
+12. the training entry point at full width: a seeded 1080x1920 PNG tree
+   (train: one clip of 18 frames per camera, two samples; valid: 3 frames)
+   written by the port's encoder; ``TrainLoader`` and a 4-worker
+   ``MultiWorkerLoader`` timed per batch on it (equal batches); then
+   ``refvsr_tpu_torch.run.main([... "--is_train", "--config",
+   "config_RefVSR_MFID_8K", "-b", "2", "--total_itr", "9"])``: one epoch
+   (one batch, 9 steps, the f32 validation at 8K over 3 windows, a
+   checkpoint) with ms per iteration, the wait on the prefetch queue, the
+   epoch's time and its share in iterations, ms per validation window,
+   PSNR, the checkpoint's bytes and save time and the peaks of training
+   and validation, the kernels' launches counted and the calls of its
+   first step and first validation window captured; then ``--resume 0
+   --total_itr 18``: the state loaded equals the saved one bit for bit, a
+   second epoch runs, ``checkpoints.txt`` holds two entries and the
+   most-recent line; then one ``Trainer.iteration`` of
+   RefVSR_small_MFID_8K under the bf16 policy (``is_amp``) at batch 4
+   (the config's 8 does not fit beside the rest), its first step's
+   backward calls captured, and one is_amp window of a tiny net on the
+   card against the CPU.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line. A kernel's
 ``ms`` there is its device time in the profiled window (forward kernels:
 the streamed window; backward kernels: the training step); ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are summed over the captured window's or
-step's calls. K3's and K4's ``ms``, ``plain_ms`` and ``library_ms`` are
+step's calls; the calls captured in phases 9, 10 and 12 are further cases
+of each row. K3's and K4's ``ms``, ``plain_ms`` and ``library_ms`` are
 CUDA-event times of one call each at their microbenchmark's default
 shape. f32 comparisons run with TF32 off for both matmuls and cuDNN
 convolutions; the full-width training runs under PyTorch's default f32
@@ -87,8 +107,8 @@ would.
 from __future__ import annotations
 
 import contextlib
-import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -97,6 +117,9 @@ import numpy as np
 import torch
 
 from refvsr_tpu_torch.bench import bound_ms, cuda_ms, device_kernels
+from refvsr_tpu_torch.bench.probe_amp import compare as amp_compare
+from refvsr_tpu_torch.bench.probe_amp import patched
+from refvsr_tpu_torch.bench.probe_amp import worst as worst_tensors
 from refvsr_tpu_torch.bench.ties import tied_rows
 
 # main-path geometry: 1080p input, T = 7, scale 4 with HD input
@@ -711,8 +734,7 @@ def phase_small_agreement(dev):
     lrs = torch.rand((1, 4, 32, 48, 3), generator=gen)
     refs = torch.rand((1, 4, 32, 48, 3), generator=gen)
     worst = 0.0
-    runners = [StreamRunner(copy.deepcopy(net), None, device=d)
-               for d in ("cpu", dev)]
+    runners = [StreamRunner(net, None, device=d) for d in ("cpu", dev)]
     for wi in range(2):
         outs = [r.process(lrs[:, wi:wi + 3], refs[:, wi:wi + 3],
                           is_first=wi == 0)[0] for r in runners]
@@ -843,12 +865,13 @@ def phase_small_training(dev):
 
 
 @contextlib.contextmanager
-def capturing(module, name, calls, new_shapes_only=None):
+def capturing(module, name, calls, new_shapes_only=None, when=None):
     """Route `module.name` (a kernel wrapper as its caller looks it up)
     through a spy that keeps (args, kwargs), tensors detached and cloned,
     of each call in `calls`. Given a set `new_shapes_only`, it keeps only
     the first call of each argument shape not yet in the set, and adds that
-    shape. The wrapper runs unchanged, and its launch count stays its own:
+    shape; given a callable `when`, only calls made while it returns True.
+    The wrapper runs unchanged, and its launch count stays its own:
     a wrapper that counts through its module's name reaches the spy, which
     passes ``launches`` on to it."""
     fn = getattr(module, name)
@@ -856,7 +879,9 @@ def capturing(module, name, calls, new_shapes_only=None):
     class Spy:
         def __call__(self, *args, **kw):
             key = _shape_key(args)
-            if new_shapes_only is None or key not in new_shapes_only:
+            if when is not None and not when():
+                pass
+            elif new_shapes_only is None or key not in new_shapes_only:
                 if new_shapes_only is not None:
                     new_shapes_only.add(key)
                 calls.append((tuple(_clone(a) for a in args),
@@ -880,6 +905,19 @@ def capturing(module, name, calls, new_shapes_only=None):
 
 def _clone(v):
     return v.detach().clone() if torch.is_tensor(v) else v
+
+
+def to_host(*call_sets):
+    """Move the tensors of captured calls ({kernel: [(args, kwargs)]}) to
+    the host, in place, so that the card holds none of them while later
+    phases run; path_cases moves each call back for its comparison."""
+    def host(v):
+        return v.cpu() if torch.is_tensor(v) else v
+    for calls_by_name in call_sets:
+        for calls in calls_by_name.values():
+            for i, (args, kw) in enumerate(calls):
+                calls[i] = (tuple(host(a) for a in args),
+                            {k: host(v) for k, v in kw.items()})
 
 
 def _shape_key(args):
@@ -1471,6 +1509,482 @@ def phase_training(dev, card):
     return launches, summary, in_step, calls
 
 
+# the training entry point: a seeded 1080p PNG tree laid out as
+# set_data_path reads it under flag_HD_in (every stream under HR/). Train:
+# one clip of 18 frames per camera, two samples of 7 + 9 - 1 frames, one
+# batch of 2; valid: one clip of 3 frames per camera, three windows
+TREE_FRAMES = {"train": 18, "valid": 3}
+LOADER_WORKERS = 4
+# the is_amp window of a tiny net (bench/probe_amp.compare, seeds 14 and
+# 3). Card against CPU: bf16 keeps 8 mantissa bits and the two devices round
+# different partial sums (cuDNN and the kernels against the CPU's
+# convolutions and plain versions), so the losses within 3e-2 relative, the
+# MFID term 1e-1 (it divides by each distance row's minimum), and the
+# gradients, all trained tensors as one vector, within 5e-2 relative L2
+# (2.66e-2 on the H100). That vector is blind to a fault in a few small
+# tensors, and tensor by tensor the two devices' bf16 gradients differ by
+# up to 2.6 of a tensor's norm, a gap that holding the matching picks and
+# the affine sampling positions to the CPU's does not close. So each
+# trained tensor is checked on one device: the card's kernels against
+# their plain versions on the card, the discrete choices held, within
+# 5e-2 relative L2 (1.25e-2 to 1.49e-2 on the H100; any backward kernel's
+# output scaled by 1.1 gives 0.13 or more; readings by probe_amp, PERF.md
+# section 6)
+AMP_LOSS_RTOL = {"MFID": 1e-1, "other": 3e-2}
+AMP_GRAD_OVERALL = 5e-2
+AMP_GRAD_VS_PLAIN = 5e-2
+
+
+def write_tree(root, rng):
+    """The seeded PNG tree under `root`; returns the seconds it took."""
+    from refvsr_tpu_torch.data.png import write_image
+    t0 = time.perf_counter()
+    for split, n in TREE_FRAMES.items():
+        for cam in ("UW", "W", "T"):
+            for i in range(n):
+                write_image(f"{root}/RealMCVSR/{split}/HR/{cam}/0000/"
+                            f"{i:04d}.png", _scene(rng, H, W))
+    return time.perf_counter() - t0
+
+
+def phase_loader(cfg, card):
+    """ms per batch of each loader on the tree: TrainLoader, then
+    MultiWorkerLoader with LOADER_WORKERS workers, its pool's start timed
+    apart from its first batch (the workers' start-up) and a second one;
+    both loaders' batches must be equal."""
+    from refvsr_tpu_torch.data.datasets import TrainDataset, TrainLoader
+    from refvsr_tpu_torch.data.loader import MultiWorkerLoader
+    ds = TrainDataset(cfg)
+    check(len(ds) == 2, f"loader: {len(ds)} training samples, not 2")
+    t0 = time.perf_counter()
+    want = next(iter(TrainLoader(ds, cfg.batch_size, seed=cfg.manual_seed)))
+    single_ms = (time.perf_counter() - t0) * 1e3
+    p, t = cfg.patch_size, cfg.frame_num + cfg.frame_itr_num - 1
+    shapes = {k: want[k].shape for k in ("LR_UW", "LR_REF_W", "HR_UW",
+                                         "HR_REF_T")}
+    check(shapes == {"LR_UW": (2, t, p, p, 3), "LR_REF_W": (2, t, 2 * p,
+                                                            2 * p, 3),
+                     "HR_UW": (2, t, p, p, 3),
+                     "HR_REF_T": (2, t, 4 * p, 4 * p, 3)},
+          f"loader: batch shapes {shapes}")
+    mw = MultiWorkerLoader(ds, cfg.batch_size, seed=cfg.manual_seed,
+                           num_workers=LOADER_WORKERS)
+    try:
+        t0 = time.perf_counter()
+        mw.start()
+        start_ms = (time.perf_counter() - t0) * 1e3
+        got, ms = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got.append(next(iter(mw)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        mw.close()
+    for b in got:
+        check(all(np.array_equal(b[k], want[k]) for k in want),
+              "loader: MultiWorkerLoader's batch differs from TrainLoader's")
+    out = dict(train_loader_ms=single_ms, workers=LOADER_WORKERS,
+               pool_start_ms=start_ms, first_batch_ms=ms[0],
+               warm_batch_ms=ms[1])
+    log(f"loader (batch {cfg.batch_size}, {t} frames x 6 streams of "
+        f"{H}x{W} PNG a sample): TrainLoader {single_ms:.1f} ms/batch; "
+        f"MultiWorkerLoader ({LOADER_WORKERS} workers) pool start "
+        f"{start_ms:.1f} ms, first batch {ms[0]:.1f} ms (with the workers' "
+        f"start-up), next {ms[1]:.1f} ms; batches equal  [{card}]")
+    return out
+
+
+class EpochRecord:
+    """What the instrumented classes record during a run.main call: epoch
+    starts, each Trainer.iteration's start and end, each validation
+    window's time, the training and validation peaks, the validation
+    launches and PSNR, each checkpoint save's time and bytes."""
+
+    def __init__(self):
+        self.epoch_t0, self.iters, self.windows = [], [], []
+        self.saves, self.valid = [], []
+        self.steps = 0
+        # device memory earlier phases still hold (their captured inputs)
+        self.base = torch.cuda.memory_allocated()
+        self.gate = False       # capture the kernels' inputs now
+        self.capture = True     # in the first step and window of the run
+
+
+def instrumented(rec):
+    from refvsr_tpu_torch.data.loader import MultiWorkerLoader
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.train.ckpt import CkptManager
+    from refvsr_tpu_torch.train.runner import Runner
+    from refvsr_tpu_torch.train.trainer import Trainer
+
+    def set_epoch(orig):
+        def f(self, epoch):
+            rec.epoch_t0.append(time.perf_counter())
+            return orig(self, epoch)
+        return f
+
+    def iteration(orig):
+        def f(self, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(self, batch)
+            torch.cuda.synchronize()
+            rec.iters.append((t0, time.perf_counter()))
+            return out
+        return f
+
+    def train_step(orig):
+        def f(self, *a):
+            rec.gate = rec.capture and rec.steps == 0
+            rec.steps += 1
+            try:
+                return orig(self, *a)
+            finally:
+                rec.gate = False
+        return f
+
+    def process(orig):
+        def f(self, *a):
+            rec.gate = rec.capture and not rec.windows
+            t0 = time.perf_counter()
+            try:
+                return orig(self, *a)      # returns numpy: synchronised
+            finally:
+                rec.windows.append((time.perf_counter() - t0) * 1e3)
+                rec.gate = False
+        return f
+
+    def validate(orig):
+        def f(self, *a, **k):
+            torch.cuda.synchronize()
+            train_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = read_launches()
+            t0 = time.perf_counter()
+            psnr = orig(self, *a, **k)
+            after = read_launches()
+            rec.valid.append(dict(
+                psnr=psnr, ms=(time.perf_counter() - t0) * 1e3,
+                train_peak_bytes=train_peak,
+                valid_peak_bytes=torch.cuda.max_memory_allocated(),
+                launches={k: after[k] - before[k] for k in after}))
+            torch.cuda.reset_peak_memory_stats()
+            return psnr
+        return f
+
+    def save(orig):
+        def f(self, state_dict, train_state, epoch, score):
+            t0 = time.perf_counter()
+            orig(self, state_dict, train_state, epoch, score)
+            t_end = time.perf_counter()
+            name = self._file_name(epoch)
+            rec.saves.append(dict(ms=(t_end - t0) * 1e3, t_end=t_end,
+                                  bytes=sum(os.path.getsize(
+                                      os.path.join(d, name))
+                                      for d in (self.dir_ckpt,
+                                                self.dir_state))))
+        return f
+
+    stack = contextlib.ExitStack()
+    for cls, name, make in ((MultiWorkerLoader, "set_epoch", set_epoch),
+                            (Trainer, "iteration", iteration),
+                            (Trainer, "train_step", train_step),
+                            (StreamRunner, "process", process),
+                            (Runner, "validate", validate),
+                            (CkptManager, "save", save)):
+        stack.enter_context(patched(cls, name, make))
+    return stack
+
+
+def epoch_summary(rec, what, card):
+    """The numbers of one run.main epoch from its record."""
+    starts = [rec.epoch_t0[0]] + [b for _, b in rec.iters[:-1]]
+    waits = [(a - s) * 1e3 for (a, _), s in zip(rec.iters, starts)]
+    iter_ms = [(b - a) * 1e3 for a, b in rec.iters]
+    check(rec.saves and rec.valid, f"{what}: no validation or checkpoint")
+    epoch_ms = (rec.saves[0]["t_end"] - rec.epoch_t0[0]) * 1e3
+    v = rec.valid[0]
+    out = dict(iteration_ms=iter_ms, wait_ms=waits, epoch_ms=epoch_ms,
+               iteration_share=sum(iter_ms) / epoch_ms,
+               valid_window_ms=rec.windows, psnr=v["psnr"],
+               valid_ms=v["ms"], train_peak_bytes=v["train_peak_bytes"],
+               valid_peak_bytes=v["valid_peak_bytes"],
+               valid_launches=v["launches"], ckpt_save_ms=rec.saves[0]["ms"],
+               ckpt_bytes=rec.saves[0]["bytes"], held_before_bytes=rec.base)
+    log(f"{what}: {len(iter_ms)} batch(es), Trainer.iteration "
+        + ", ".join(f"{m:.1f}" for m in iter_ms) + " ms (9 steps each); "
+        f"wait on the prefetch queue " + ", ".join(f"{m:.1f}" for m in waits)
+        + f" ms; epoch {epoch_ms:.1f} ms, of which iterations "
+        f"{out['iteration_share']:.3f}; validation {v['ms']:.1f} ms, "
+        f"windows " + ", ".join(f"{m:.1f}" for m in rec.windows)
+        + f" ms, PSNR {v['psnr']:.4f} dB, launches {v['launches']}; "
+        f"checkpoint {rec.saves[0]['bytes']} bytes in "
+        f"{rec.saves[0]['ms']:.1f} ms; peaks: training "
+        f"{v['train_peak_bytes'] / 2**30:.2f} GiB, validation "
+        f"{v['valid_peak_bytes'] / 2**30:.2f} GiB, with the "
+        f"{rec.base / 2**30:.2f} GiB earlier phases hold  [{card}]")
+    return out
+
+
+def _cached_reads():
+    """data.datasets' PNG reader behind a cache, for the small variant's
+    batch that reads each file several times."""
+    import functools
+
+    from refvsr_tpu_torch.data import datasets
+    return patched(datasets, "read_image",
+                   lambda orig: functools.lru_cache(maxsize=None)(orig))
+
+
+def amp_vs_cpu_line(r, card):
+    return ("is_amp window (tiny net, bf16), card vs CPU: losses "
+            + ", ".join(f"{k} {g:.6g}/{c:.6g}" for k, (g, c) in
+                        r["losses"].items())
+            + f"; {r['flipped'][0]} of {r['flipped'][1]} matching picks "
+            f"differ; gradients {r['overall']:.3e} relative L2 over all "
+            f"trained tensors, worst tensors "
+            f"{worst_tensors(r['vs_cpu'])}. The card's kernels against "
+            f"their plain versions on the card, choices held: worst tensors "
+            f"{worst_tensors(r['vs_plain'])}  [{card}]")
+
+
+def phase_amp(dev, card, root):
+    """One Trainer.iteration of RefVSR_small_MFID_8K (is_amp: bf16 compute
+    on f32 master weights) at the config's batch of 8 from the tree (its
+    two samples, each under four epochs' augmentation draws), the backward
+    kernels' calls of its first step captured; then the card against the
+    CPU on one is_amp window of a tiny net. Returns (summary, captured
+    calls)."""
+    from refvsr_tpu_torch.configs import get_config, set_data_path
+    from refvsr_tpu_torch.data.datasets import (TrainDataset, collate,
+                                                sample_rng)
+    from refvsr_tpu_torch.models.refvsr import init_stream_state
+    from refvsr_tpu_torch.ops.kernels import argmax_matmul as k2_mod
+    from refvsr_tpu_torch.ops.kernels import warp_sample as k1_mod
+    from refvsr_tpu_torch.train.trainer import Trainer
+
+    cfg = set_data_path(get_config(
+        "RefVSR_small_MFID_8K", data_offset=root, is_train=True,
+        **NO_ASSETS), True)
+    n = cfg.batch_size
+    check((cfg.is_amp, cfg.num_blocks, cfg.mid_channels, cfg.frame_num,
+           cfg.flag_HD_in, cfg.batch_size, cfg.patch_size)
+          == (True, 24, 24, 3, True, 8, 128),
+          f"is_amp config {cfg}")
+    ds = TrainDataset(cfg)
+    with _cached_reads():
+        batch = collate([ds.__getitem__(j % len(ds), rng=sample_rng(
+            cfg.manual_seed, j // len(ds), j % len(ds))) for j in range(n)])
+    tr = Trainer(cfg, device=dev, seed=0)
+    check(tr.compute_dtype == torch.bfloat16, "is_amp: compute dtype")
+    trained0 = [p.detach().clone() for p in tr.params]
+    calls = {"warp_sample_backward": [], "argmax_matmul_backward": []}
+    gate = {"on": False}
+    step = tr.train_step
+
+    def first_step_gated(*a):
+        gate["on"] = not tr.window_errs
+        try:
+            return step(*a)
+        finally:
+            gate["on"] = False
+    tr.train_step = first_step_gated
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with capturing(k1_mod, "warp_sample_backward",
+                   calls["warp_sample_backward"], when=lambda: gate["on"]), \
+            capturing(k2_mod, "argmax_matmul_backward",
+                      calls["argmax_matmul_backward"],
+                      when=lambda: gate["on"]):
+        t0 = time.perf_counter()
+        means, _ = tr.iteration(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del tr.train_step
+    check(all(all(_finite(v) for v in e.values()) for e in tr.window_errs),
+          f"is_amp: non-finite losses {tr.window_errs}")
+    check(all(p.dtype == torch.float32 for p in tr.params)
+          and all(m.dtype == torch.float32 for m in tr.opt.mu + tr.opt.nu),
+          "is_amp: a trained tensor or an Adam moment is not f32")
+    unchanged = sum(torch.equal(p, p0) for p, p0 in zip(tr.params, trained0))
+    check(unchanged == 0, f"is_amp: {unchanged} trained tensors unchanged")
+    check(all(launches[k] > 0 for k in KERNEL_FNS),
+          f"is_amp: a kernel was not launched {launches}")
+    check(all(v and all(a[0].dtype == torch.bfloat16 for a, _ in v)
+              for v in calls.values()),
+          "is_amp: the backward kernels did not run in bf16")
+    summary = dict(batch=n, iteration_ms=ms, peak_bytes=peak,
+                   mean_errors=means, launches=launches)
+    log(f"is_amp iteration (RefVSR_small_MFID_8K: bf16 on f32 masters, 24 "
+        f"blocks, 24 ch, T=3, patch 128, batch {n}): "
+        f"{cfg.frame_itr_num} steps in {ms:.1f} ms; peak "
+        f"{peak / 2**30:.2f} GiB; mean errors {means}; launches {launches}; "
+        f"trained tensors f32, all changed  [{card}]")
+    del tr, trained0, batch
+    torch.cuda.empty_cache()
+
+    # the card against the CPU, and the card's kernels against their plain
+    # versions, on one is_amp window of a tiny net (limits above)
+    r = amp_compare(dev)
+    bad = []
+    for k, (g, c) in r["losses"].items():
+        rtol = AMP_LOSS_RTOL["MFID" if k.startswith("MFID") else "other"]
+        if abs(g - c) > rtol * abs(c):
+            bad.append(f"loss {k} card {g} vs CPU {c} (rtol {rtol})")
+    if not r["overall"] <= AMP_GRAD_OVERALL:
+        bad.append(f"the gradients differ from the CPU's by "
+                   f"{r['overall']:.3e} relative L2 (limit "
+                   f"{AMP_GRAD_OVERALL})")
+    worst = max((v, k) for k, v in r["vs_plain"].items())
+    if not worst[0] <= AMP_GRAD_VS_PLAIN:
+        bad.append(f"{worst[1]}'s gradient is {worst[0]:.3e} relative L2 "
+                   f"from the plain versions' (limit {AMP_GRAD_VS_PLAIN})")
+    log(amp_vs_cpu_line(r, card))
+    summary["card_vs_cpu"] = dict(
+        losses=r["losses"], flipped_picks=r["flipped"],
+        gradient_rel_l2=r["overall"],
+        worst_tensor_vs_cpu=max((v, k) for k, v in r["vs_cpu"].items()),
+        worst_tensor_vs_plain=worst)
+    check(not bad, "is_amp: " + "; ".join(bad))
+    return summary, calls
+
+
+def phase_train_entry(dev, card):
+    """The training entry point through run.main at full width:
+    RefVSR_MFID_8K from a 1080p PNG tree, one epoch (one batch of 2, 9
+    steps, the f32 validation at 8K, a checkpoint), then a resume into a
+    second epoch, then the is_amp iteration. Returns (launches of the first
+    epoch, summary, captured kernel calls of the epoch's first step and
+    first validation window, those of the is_amp step)."""
+    import tempfile
+
+    from refvsr_tpu_torch import run
+    from refvsr_tpu_torch.models import matching as matching_mod
+    from refvsr_tpu_torch.ops import warp as warp_mod
+    from refvsr_tpu_torch.ops.kernels import argmax_matmul as k2_mod
+    from refvsr_tpu_torch.ops.kernels import warp_sample as k1_mod
+    from refvsr_tpu_torch.train.runner import Runner
+
+    calls = {name: [] for name in KERNEL_FNS}
+    summary = dict(card=card)
+    with tempfile.TemporaryDirectory() as root:
+        tree_s = write_tree(root, np.random.default_rng(13))
+        n_png = 3 * sum(TREE_FRAMES.values())
+        log(f"PNG tree: {n_png} seeded {H}x{W} frames written in "
+            f"{tree_s:.1f} s")
+        argv = ["--is_train", "--config", "config_RefVSR_MFID_8K",
+                "--mode", "chip_smoke", "-b", str(TRAIN_BATCH),
+                "--data_offset", root, "--log_offset", f"{root}/logs"]
+        cfg = run.build_config(run.build_parser().parse_args(
+            argv + ["--total_itr", "9"]))
+        check((cfg.num_blocks, cfg.mid_channels, cfg.flag_HD_in,
+               cfg.matching_ksize, cfg.is_use_T, cfg.is_amp, cfg.loss,
+               cfg.CX_vgg_layer, cfg.patch_size, cfg.frame_num,
+               cfg.frame_itr_num, cfg.thread_num, cfg.write_ckpt_every_epoch)
+              == (30, 48, True, 8, True, False, "1*L1_lf+0.1*MFID_ref",
+                  "relu4_4", 128, 7, 9, 4, 1), f"CLI config {cfg}")
+        summary["tree_write_s"] = tree_s
+        summary["loader"] = phase_loader(cfg, card)
+
+        # one epoch through the CLI, instrumented; the kernels' inputs of
+        # its first step and its first validation window captured
+        rec = EpochRecord()
+        seen = {"warp_sample": set(), "argmax_matmul": set()}
+        gate = lambda: rec.gate  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with instrumented(rec), \
+                capturing(warp_mod, "warp_sample", calls["warp_sample"],
+                          seen["warp_sample"], when=gate), \
+                capturing(matching_mod, "argmax_matmul",
+                          calls["argmax_matmul"], seen["argmax_matmul"],
+                          when=gate), \
+                capturing(k1_mod, "warp_sample_backward",
+                          calls["warp_sample_backward"], when=gate), \
+                capturing(k2_mod, "argmax_matmul_backward",
+                          calls["argmax_matmul_backward"], when=gate):
+            t0 = time.perf_counter()
+            runner = run.main(argv + ["--total_itr", "9"])
+            main_ms = (time.perf_counter() - t0) * 1e3
+            summary["epoch0"] = epoch_summary(rec, "epoch 0 via run.main",
+                                              card)
+        launches = read_launches()
+        summary["epoch0"].update(run_main_ms=main_ms, launches=launches)
+        tr = runner.trainer
+        check(tr.opt.step == cfg.frame_itr_num == len(rec.iters) * 9,
+              f"epoch 0: {tr.opt.step} steps in {len(rec.iters)} batches")
+        check(all(launches[k] > 0 for k in KERNEL_FNS)
+              and not any(launches[k] for k in BENCH_FNS.values()),
+              f"epoch 0: a kernel was not launched, or K3/K4 was {launches}")
+        v = summary["epoch0"]
+        check(np.isfinite(v["psnr"]) and len(v["valid_window_ms"]) == 3,
+              f"epoch 0: PSNR {v['psnr']}, {len(v['valid_window_ms'])} "
+              f"validation windows")
+        check(v["valid_launches"]["argmax_matmul"] == 3
+              and v["valid_launches"]["warp_sample"] == 16 + 2 * 10,
+              f"validation launches {v['valid_launches']}")
+        check(all(p.dtype == torch.float32 and p.requires_grad
+                  for p in tr.params) and tr.net.training,
+              "validation changed the trainer's net")
+        saved = ({k: v.detach().cpu().clone()
+                  for k, v in tr.net.state_dict().items()},
+                 [m.detach().cpu().clone() for m in tr.opt.mu + tr.opt.nu],
+                 tr.opt.step)
+        log_dir = cfg.log_dir
+        del runner, tr
+        torch.cuda.empty_cache()
+
+        # resume from epoch 0 into a second epoch; the state loaded must
+        # equal what the first run held, bit for bit
+        loaded = {}
+
+        def resume(orig):
+            def f(self, epoch):
+                orig(self, epoch)
+                t = self.trainer
+                loaded.update(
+                    net=all(torch.equal(v.cpu(), saved[0][k])
+                            for k, v in t.net.state_dict().items())
+                    and set(t.net.state_dict()) == set(saved[0]),
+                    opt=all(torch.equal(m.cpu(), s) for m, s in
+                            zip(t.opt.mu + t.opt.nu, saved[1])),
+                    step=t.opt.step, epoch0=self.epoch0)
+            return f
+
+        rec = EpochRecord()
+        rec.capture = False
+        torch.cuda.reset_peak_memory_stats()
+        with instrumented(rec), patched(Runner, "resume", resume):
+            runner = run.main(argv + ["--resume", "0", "--total_itr", "18"])
+            summary["epoch1"] = epoch_summary(rec, "epoch 1 (resumed)", card)
+        check(loaded == dict(net=True, opt=True, step=saved[2], epoch0=1),
+              f"resume: {loaded}")
+        check(runner.epoch0 == 1 and runner.trainer.opt.step == 18,
+              f"resume: epoch0 {runner.epoch0}, step "
+              f"{runner.trainer.opt.step}")
+        with open(f"{log_dir}/checkpoint/train/epoch/checkpoints.txt") as f:
+            lines = f.read().splitlines()
+        check(len(lines) == 3 and sorted(lines[:2]) == sorted(
+            f"chip_smoke_{e:05d}.ckpt {p}" for e, p in
+            ((0, summary["epoch0"]["psnr"]), (1, summary["epoch1"]["psnr"])))
+              and lines[2].startswith("chip_smoke_00001.ckpt "),
+              f"checkpoints.txt: {lines}")
+        log(f"resume: net and Adam moments equal to epoch 0's bit for bit, "
+            f"step {saved[2]}, epoch0 1; checkpoints.txt {lines}")
+        del runner
+        to_host(calls)
+        torch.cuda.empty_cache()
+        log(f"before the is_amp iteration: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        summary["amp"], amp_calls = phase_amp(dev, card, root)
+    return launches, summary, calls, amp_calls
+
+
 def _shape(t):
     return "x".join(str(v) for v in t.shape)
 
@@ -1480,9 +1994,10 @@ def path_cases(stream_calls, first_calls, train_calls, more_calls):
     gave it: every call of a streamed window, the first window's calls at
     shapes the streamed window lacks, the training step's calls (the
     forward kernels once per shape, the backward kernels at every call),
-    and the forward kernels' calls in `more_calls` ({path label: calls by
-    kernel}: one predict, one pipelined dispatch). Returns {kernel: (the
-    calls its in-path numbers sum over, the rest)}."""
+    and the calls in `more_calls` ({path label: calls by kernel}: one
+    predict, one pipelined dispatch, the first step and validation window
+    of the training entry point's epoch, one is_amp step). Returns
+    {kernel: (the calls its in-path numbers sum over, the rest)}."""
     def k1(label, args, kw):
         return k1_case(label, *args, 2.0 ** -6 if args[0].dtype ==
                        torch.bfloat16 else 1e-5)
@@ -1496,13 +2011,18 @@ def path_cases(stream_calls, first_calls, train_calls, more_calls):
     def k2_bwd(label, args, kw):
         return k2_bwd_case(label, *args, **kw)
 
+    def card(v):
+        return v.cuda() if torch.is_tensor(v) else v
+
     def run(fn, where, calls):
-        return [fn(f"{where} call {i}: {_shape(a[0])}, {_shape(a[1])}", a, kw)
+        return [fn(f"{where} call {i}: {_shape(a[0])}, {_shape(a[1])}",
+                   tuple(card(x) for x in a),
+                   {k: card(v) for k, v in kw.items()})
                 for i, (a, kw) in enumerate(calls)]
 
     def more(fn, name):
         return [c for label, calls in more_calls.items()
-                for c in run(fn, label, calls[name])]
+                for c in run(fn, label, calls.get(name, []))]
 
     return {
         "warp_sample": (run(k1, "forward_stream", stream_calls["warp_sample"]),
@@ -1516,10 +2036,10 @@ def path_cases(stream_calls, first_calls, train_calls, more_calls):
             + more(k2, "argmax_matmul")),
         "warp_sample_backward": (
             run(k1_bwd, "train step", train_calls["warp_sample_backward"]),
-            []),
+            more(k1_bwd, "warp_sample_backward")),
         "argmax_matmul_backward": (
             run(k2_bwd, "train step", train_calls["argmax_matmul_backward"]),
-            []),
+            more(k2_bwd, "argmax_matmul_backward")),
     }
 
 
@@ -1624,6 +2144,7 @@ def kernels_line(synthetic, on_path, in_path, in_step, launches, bench):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
     card = card_line()
@@ -1659,15 +2180,29 @@ def main():
     with cudnn_tf32(True):
         launches["train"], train, in_step, train_calls = phase_training(
             dev, card)
+        to_host(stream_calls, first_calls, serve_calls, pipe_calls,
+                train_calls)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches["train_entry"], entry, entry_calls, amp_calls = \
+            phase_train_entry(dev, card)
+        entry["phase_s"] = time.perf_counter() - t0
+        log(f"training entry point phase: {entry['phase_s']:.1f} s")
+    launches["train_amp"] = entry["amp"]["launches"]
     on_path = path_cases(stream_calls, first_calls, train_calls,
                          {"predict": serve_calls,
-                          "pipelined dispatch": pipe_calls})
+                          "pipelined dispatch": pipe_calls,
+                          "train entry (step 1, validation window 0)":
+                          entry_calls,
+                          "is_amp step": amp_calls})
     kernels = kernels_line(synthetic, on_path, in_path, in_step, launches,
                            bench)
     log(json.dumps(dict(main_path=dict(card=card, windows=windows,
                                        peak_bytes=peak), serving=serving,
-                        pipelined=pipelined, training=train)))
+                        pipelined=pipelined, training=train,
+                        train_entry=entry)))
     log(json.dumps(dict(kernels=kernels)))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s  [{card}]")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

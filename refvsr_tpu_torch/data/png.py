@@ -10,7 +10,8 @@ bit depth, an interlaced file, a file that is not a PNG) raises a
 JAX package's reader gives through PIL's ``convert("RGB")``: grey
 replicated, alpha dropped, palettes looked up, as float32 in [0, 1].
 
-The writer writes 8-bit RGB with filter 0 (none) on every row."""
+The writer writes 8-bit RGB, or grey for a 2-D array, with filter 0
+(none) on every row."""
 
 from __future__ import annotations
 
@@ -147,19 +148,23 @@ def decode_png(buf: bytes) -> np.ndarray:
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 as an 8-bit RGB PNG, filter 0 on every row."""
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"encode_png takes (H, W, 3) uint8, not "
+    """(H, W, 3) uint8 as an 8-bit RGB PNG, or (H, W) uint8 as an 8-bit
+    grey one (as PIL writes a 2-D array), filter 0 on every row."""
+    if img.dtype != np.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_png takes (H, W, 3) or (H, W) uint8, not "
                          f"{img.shape} {img.dtype}")
     h, w = img.shape[:2]
-    raw = np.zeros((h, 1 + 3 * w), np.uint8)
+    grey = img.ndim == 2
+    raw = np.zeros((h, 1 + (1 if grey else 3) * w), np.uint8)
     raw[:, 1:] = img.reshape(h, -1)
 
     def chunk(ctype, data):
         return (struct.pack(">I", len(data)) + ctype + data
                 + struct.pack(">I", zlib.crc32(ctype + data)))
     return (SIGNATURE
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if grey
+                                         else 2, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + chunk(b"IEND", b""))
 
@@ -176,8 +181,9 @@ def read_image(path) -> np.ndarray:
 
 
 def write_image(path, arr: np.ndarray) -> None:
-    """An (H, W, 3) float image in [0, 1] as an 8-bit RGB PNG, quantized as
-    the JAX predictor does: ``(clip(x, 0, 1) * 255).round()``."""
+    """An (H, W, 3) float image in [0, 1] as an 8-bit RGB PNG, or an (H, W)
+    one as a grey PNG, quantized as the JAX package does:
+    ``(clip(x, 0, 1) * 255).round()``."""
     q = (np.clip(arr, 0, 1) * 255).round().astype(np.uint8)
     os.makedirs(os.path.dirname(os.fspath(path)) or ".", exist_ok=True)
     with open(path, "wb") as f:

@@ -16,6 +16,7 @@ and ``flush`` returns nothing, so callers use one code path for both."""
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -28,7 +29,10 @@ class StreamRunner:
     """Runs a RefVSRNet over consecutive windows of a video.
 
     The net runs on `device` (the card unless the caller asks for the CPU)
-    in `compute_dtype`; the runner moves the net there. `pipeline_lanes`
+    in `compute_dtype`. The runner never changes the caller's net: it runs
+    the net itself when its parameters already lie there in that dtype,
+    else a copy moved and cast there (a trainer's f32 net validated in
+    bf16 keeps its f32 parameters, and its training mode). `pipeline_lanes`
     must be the net's own (0 or 1 for the plain stream)."""
 
     def __init__(self, net, reset_branch: Optional[int], device="cuda",
@@ -44,7 +48,13 @@ class StreamRunner:
                 "pipeline_lanes > 2 with reset_branch set needs window "
                 "lookahead; use pipeline_lanes=2 or reset_branch=None")
         self.compute_dtype = compute_dtype
-        self.net = net.to(device=self.device, dtype=compute_dtype).eval()
+        p = next(net.parameters())
+        if p.dtype == compute_dtype and p.device.type == self.device.type \
+                and self.device.index in (None, p.device.index):
+            self.net = net
+        else:
+            self.net = copy.deepcopy(net).to(device=self.device,
+                                             dtype=compute_dtype).eval()
         self.reset_branch = reset_branch
         self.pipeline_lanes = pipeline_lanes
         self.state = None

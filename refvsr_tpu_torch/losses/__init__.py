@@ -82,16 +82,52 @@ class LossModule(nn.Module):
                                 CXLoss(vgg_layer=vgg_layer, **opts))
         self.requires_grad_(False)
 
+    def _compared(self, sr, hr):
+        """The SR frame at the ground truth's size (HD input: downscaled
+        by the scale, clipped)."""
+        if self.flag_HD_in and hr.shape != sr.shape:
+            return resize(sr, scale_factor=1.0 / self.scale, mode="bicubic",
+                          align_corners=False).clamp(0, 1)
+        return sr
+
+    def _mfid(self, cx, sr, refs):
+        """A contextual term of the SR frame against every ref frame of
+        `refs` (N, T, ...), one batch of N*T pairs."""
+        n, t = refs.shape[:2]
+        xf = cx.features(sr)
+        xf = xf[:, None].expand(n, t, *xf.shape[1:]).reshape(
+            n * t, *xf.shape[1:])
+        return cx.core(xf, cx.features(refs.reshape(n * t, *refs.shape[2:])))
+
+    def vis_maps(self, sr, hr, refs):
+        """The contextual terms' confidence maps, each min-max normalised
+        per batch item, under the reference's names (Loss.py:112,123,133):
+        {name: (N', hy, wy, 1) in [0, 1]}."""
+        def norm_res_vis(m):
+            flat = m.reshape(m.shape[0], -1)
+            flat = flat - flat.amin(dim=1, keepdim=True)
+            flat = flat / flat.amax(dim=1, keepdim=True).clamp_min(1e-12)
+            return flat.reshape(m.shape)
+
+        sr_cmp = self._compared(sr, hr)
+        vis = {}
+        for _, ltype in self.terms:
+            cx = getattr(self, f"cx_{ltype}", None)
+            if ltype.startswith("MFID_ref"):
+                vis["contextual_ref_MFID_C"] = norm_res_vis(
+                    self._mfid(cx, sr, refs)[1])
+            elif ltype.startswith("FID_ref"):
+                vis["contextual_ref_C"] = norm_res_vis(cx(sr, refs[:, -1])[1])
+            elif ltype.startswith("FID_hr"):
+                vis["contextual_hr_C_sh"] = norm_res_vis(cx(sr_cmp, hr)[1])
+        return vis
+
     def forward(self, sr, hr, refs):
         """sr (N, H, W, 3) SR output; hr (N, h, w, 3) ground truth centre
         frame; refs (N, T_ref, hr_h, hr_w, 3) the ref frames seen so far.
         Returns a dict of scalar losses with 'total' and (detached)
         'PSNR'."""
-        if self.flag_HD_in and hr.shape != sr.shape:
-            sr_cmp = resize(sr, scale_factor=1.0 / self.scale,
-                            mode="bicubic", align_corners=False).clamp(0, 1)
-        else:
-            sr_cmp = sr
+        sr_cmp = self._compared(sr, hr)
         errs = {}
         total = 0.0
         for weight, ltype in self.terms:
@@ -105,12 +141,7 @@ class LossModule(nn.Module):
             else:
                 cx = getattr(self, f"cx_{ltype}")
                 if ltype.startswith("MFID_ref"):
-                    n, t = refs.shape[:2]
-                    xf = cx.features(sr)
-                    xf = xf[:, None].expand(n, t, *xf.shape[1:]).reshape(
-                        n * t, *xf.shape[1:])
-                    yf = cx.features(refs.reshape(n * t, *refs.shape[2:]))
-                    loss, _ = cx.core(xf, yf)
+                    loss, _ = self._mfid(cx, sr, refs)
                 elif ltype.startswith("FID_ref"):
                     loss, _ = cx(sr, refs[:, -1])
                 else:

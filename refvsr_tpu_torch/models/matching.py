@@ -213,7 +213,10 @@ class AlignedAttention(nn.Module):
         if align:
             self.align = AlignedConv2d(kernel_size=scale, stride=scale)
 
-    def forward(self, lr, ref, index_map, value):
+    def forward(self, lr, ref, index_map, value, return_fm: bool = False):
+        """`value` warped patch by patch onto the (2h, 2w) grid by
+        `index_map`, then affine-aligned; `return_fm` returns the warped
+        value before the alignment (the Runner's sample tile)."""
         h, w = lr.shape[1], lr.shape[2]
         k = self.scale
 
@@ -223,7 +226,7 @@ class AlignedAttention(nn.Module):
                                         (h * 2, w * 2), k, v.shape[-1])
 
         warped = patch_warp(value)
-        if not self.align_on:
+        if return_fm or not self.align_on:
             return warped
         return self.align(warped, lr, patch_warp(ref))
 

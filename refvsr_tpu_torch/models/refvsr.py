@@ -598,19 +598,31 @@ class RefVSRNet(nn.Module):
         forward_stream's for that frame."""
         return self._pipeline_dispatch(lrs, refs, state, emit=True)
 
+    def forward(self, lrs, refs, state: StreamState):
+        """The default entry is the training forward, as the JAX net's
+        ``__call__`` (``torch.func.functional_call`` calls it)."""
+        return self.forward_train(lrs, refs, state)
+
 
 def build_refvsr(config, device="cuda", dtype=torch.float32,
                  seed: int = 0) -> RefVSRNet:
     """A RefVSRNet for `config` (zero flows under ``EVAL.is_gradio``, its
     ``pipeline_lanes``) with seeded random weights, cast to `dtype` and
-    placed on `device` (the card unless the caller asks for the CPU)."""
+    placed on `device` (the card unless the caller asks for the CPU). A
+    training config (``is_train``) builds the plain stream, as the JAX
+    package's ``build_network`` does."""
     from refvsr_tpu_torch.utils.precision import cast_floating
+    if config.network != "RefVSR":
+        raise NotImplementedError(
+            f"network {config.network!r} is not ported (ROADMAP Queue 1, "
+            "item 5: RefVSR-IR/EDVR)")
     dev = resolve_device(device)
     net = RefVSRNet(scale=config.scale, num_blocks=config.num_blocks,
                     mid_channels=config.mid_channels,
                     matching_ksize=config.matching_ksize,
                     flag_HD_in=config.flag_HD_in,
                     zero_flow=config.EVAL.is_gradio,
-                    pipeline_lanes=config.pipeline_lanes)
+                    pipeline_lanes=(0 if config.is_train
+                                    else config.pipeline_lanes))
     init_weights(net, torch.Generator().manual_seed(seed))
     return cast_floating(net.to(dev), dtype).eval()

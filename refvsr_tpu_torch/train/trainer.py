@@ -19,7 +19,12 @@ Semantics kept from the JAX package:
   and outside the optimizer; the network's matching VGG prefix trains;
 - the pretrained SPyNet and VGG19 are loaded from ``config.spynet_ckpt``
   and ``config.vgg19_ckpt`` when the files exist, with a loud warning when
-  they do not (``utils/convert.load_pretrained_assets``).
+  they do not (``utils/convert.load_pretrained_assets``);
+- ``is_amp`` is the bf16 policy: the network runs in bf16 on bf16 copies
+  of its f32 parameters, cast inside the graph (``torch.func.
+  functional_call``), so the gradients reach the f32 masters; the window's
+  inputs and the recurrent state are bf16, the output is cast to f32 before
+  the loss, and the parameters, the Adam moments and the loss stay f32.
 
 One host-to-device upload per batch; the window slices are views on the
 device and the errors are summed on the device and read once per batch."""
@@ -83,12 +88,11 @@ class Trainer:
     reports what was filled)."""
 
     def __init__(self, config, device="cuda", seed: Optional[int] = None):
-        if config.is_amp:
-            raise NotImplementedError("the bf16 training policy (is_amp) is "
-                                      "not ported")
         self.config = config
         self.device = resolve_device(device)
         self.seed = config.manual_seed if seed is None else seed
+        self.compute_dtype = torch.bfloat16 if config.is_amp else \
+            torch.float32
         self.net = build_refvsr(config, device=self.device, seed=self.seed)
         self.net.train()
         self.net.FlowNet.requires_grad_(False)
@@ -112,7 +116,14 @@ class Trainer:
         """forward_train and the loss on one window, and the loss's
         gradients. Returns (errs dict, out, new detached state, grads: a
         tensor or None per entry of ``self.params``)."""
-        out, new_state = self.net.forward_train(lrs, refs, state)
+        cdt = self.compute_dtype
+        if cdt == torch.float32:
+            out, new_state = self.net.forward_train(lrs, refs, state)
+        else:
+            # the net holds no buffers; its parameters are all floating
+            cast = {k: p.to(cdt) for k, p in self.net.named_parameters()}
+            out, new_state = torch.func.functional_call(
+                self.net, cast, (lrs.to(cdt), refs.to(cdt), state))
         errs = self.loss_mod(out.float(), hr, ref_frames)
         grads = torch.autograd.grad(errs["total"], self.params,
                                     allow_unused=True)
@@ -154,7 +165,8 @@ class Trainer:
         for i in range(total - (t - 1)):
             if i == 0:
                 state = init_stream_state(n, h, w, cfg.mid_channels,
-                                          num_frames=t, device=self.device)
+                                          self.compute_dtype, num_frames=t,
+                                          device=self.device)
             errs, state = self.train_step(
                 state, lr_all[:, i:i + t], ref_all[:, i:i + t],
                 hr_all[:, i + t // 2], hr_ref_all[:, :i + t])

@@ -92,7 +92,7 @@ def test_build_refvsr_is_seeded():
 
 def _port_files():
     """Every module of the port, and what runs on the card's machine,
-    which has neither JAX nor PIL, cv2 or imageio."""
+    which has neither JAX nor PIL, cv2, imageio or tensorboard."""
     files = sorted((ROOT / "refvsr_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py"]
 
@@ -104,11 +104,19 @@ def test_port_files_include_the_serving_slice():
             "refvsr_tpu_torch/eval/stream.py"} <= names
 
 
+def test_port_files_include_the_training_entry_slice():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {f"refvsr_tpu_torch/{m}.py" for m in (
+        "configs/__init__", "data/np_ops", "data/datasets", "data/loader",
+        "data/prefetch", "train/ckpt", "train/runner", "utils/console",
+        "utils/profiling", "utils/events", "run")} <= names
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     banned = {"jax", "jaxlib", "flax", "refvsr_tpu", "PIL", "cv2",
-              "imageio"}
+              "imageio", "tensorboard"}
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -118,6 +126,9 @@ def test_port_imports_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in banned, (path, name)
+            # the card's machine has no tensorboard package behind it
+            assert not name.startswith("torch.utils.tensorboard"), (path,
+                                                                    name)
 
 
 def test_cuda_entry_points_raise_without_card():

@@ -41,6 +41,8 @@ the ``Predictor`` on the card against its CPU run of the same seeded
 weights, both in f32 with TF32 off, within the 1e-3 that ``chip_smoke.py``
 allows the stream's card-vs-CPU check."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -540,3 +542,124 @@ def test_predictor_card_matches_cpu(cuda_device, tmp_path, gen):
     assert outs[1].shape == (4 * 64, 4 * 80, 3)
     assert np.isfinite(outs[1]).all()
     assert float(np.abs(outs[0] - outs[1]).max()) <= 1e-3
+
+
+# ------------------------------------------------ the training entry point
+
+
+@pytest.mark.cuda
+def test_argmax_f32_kernel_at_validation_shape(gen, cuda_device):
+    """K2 in f32 (3xTF32) at a streamed validation window of
+    RefVSR_MFID_8K: 32,400 ref x 129,600 LR patches, D = 144; conf within
+    1e-5 of the plain version (TF32 off), every pick within 1e-5 of the
+    row's max."""
+    n, l_ref, l_lr, d = 1, 32400, 129600, 144
+    ref = torch.nn.functional.normalize(torch.randn(
+        (n, l_ref, d), device=cuda_device), dim=2)
+    lr = torch.nn.functional.normalize(torch.randn(
+        (n, l_lr, d), device=cuda_device), dim=2)
+    before = argmax_matmul.launches
+    conf, idx = argmax_matmul(ref, lr)
+    assert argmax_matmul.launches == before + 1
+    conf_p, _ = argmax_matmul_plain(ref, lr)
+    assert float((conf - conf_p).abs().max()) <= 1e-5
+    score = (ref[0][idx[0].long()] * lr[0]).sum(-1)
+    assert float((conf_p[0] - score).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,ho,wo", [(256, 256, 48, 256, 256),
+                                         (128, 128, 49, 128, 128),
+                                         (128, 128, 48, 256, 256)])
+def test_warp_backward_kernel_bf16_at_training_shapes(gen, cuda_device, h, w,
+                                                      c, ho, wo):
+    """K1-bwd in bf16 (the is_amp policy) at the training step's shapes,
+    batch 2, the flow in bf16 as the step gives it: dx and dflow within
+    2^-7 of the f32 plain backward's largest value on the same values (the
+    kernel sums in f32 and rounds once)."""
+    n = 2
+    x = torch.from_numpy(gen.standard_normal((n, h, w, c)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    flow = torch.from_numpy(gen.uniform(-6, 6, (n, ho, wo, 2)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(gen.standard_normal((n, ho, wo, c)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    before = warp_sample_backward.launches
+    dx, dflow = warp_sample_backward(g, flow, x.shape, x)
+    assert warp_sample_backward.launches == before + 1
+    assert dx.dtype == torch.bfloat16
+    dx_p, dflow_p = warp_sample_backward_plain(g.float(), flow.float(),
+                                               x.shape, x.float())
+    for got, want in ((dx, dx_p), (dflow, dflow_p)):
+        assert float((got.float() - want).abs().max()) <= 2.0 ** -7 * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+def test_argmax_backward_kernel_bf16_at_training_shape(gen, cuda_device):
+    """K2-bwd in bf16 at the training step's B = 14 x 1024 x 1024, D = 144:
+    d_lr within 1e-6 and d_ref within 2^-7 of their largest values."""
+    n, l_ref, l_lr, d = 14, 1024, 1024, 144
+    ref = torch.from_numpy(gen.standard_normal((n, l_ref, d)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    lr = torch.from_numpy(gen.standard_normal((n, l_lr, d)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    _, idx = argmax_matmul(ref, lr)
+    g = torch.from_numpy(gen.standard_normal((n, l_lr)).astype(np.float32)
+                         ).to(cuda_device)
+    before = argmax_matmul_backward.launches
+    d_ref, d_lr = argmax_matmul_backward(ref, lr, idx, g)
+    assert argmax_matmul_backward.launches == before + 1
+    _, d_lr_p = argmax_matmul_backward_plain(ref, lr, idx, g)
+    assert float((d_lr.float() - d_lr_p.float()).abs().max()) <= 1e-6 * \
+        float(d_lr_p.float().abs().max())
+    d_ref_p, _ = argmax_matmul_backward_plain(ref.float(), lr.float(), idx, g)
+    assert float((d_ref.float() - d_ref_p).abs().max()) <= 2.0 ** -7 * float(
+        d_ref_p.abs().max())
+
+
+@pytest.mark.cuda
+def test_runner_epoch_card_matches_cpu(cuda_device, tmp_path):
+    """One tiny Runner epoch (RefVSR_MFID wiring, 2 blocks, 8 channels,
+    T = 3, 2 steps, f32, TF32 off) on a tree written by data/png.py, on the
+    card and on the CPU from the same seeded weights. The last window's
+    losses within 1e-3 relative and the validation PSNR within 1e-2 dB;
+    each parameter within 2 * lr * steps (Adam moves a parameter by about
+    lr a step, so two runs that part ways on a near-zero gradient's sign
+    differ by at most that)."""
+    from refvsr_tpu_torch.configs import set_data_path
+    from refvsr_tpu_torch.train.runner import Runner
+    rng = np.random.default_rng(4)
+    for split in ("train", "valid"):
+        for sub, size in (("HR", 256), ("LRx2", 128), ("LRx4", 64)):
+            for cam in ("UW", "W", "T"):
+                for i in range(4):
+                    write_image(tmp_path / "RealMCVSR" / split / sub / cam
+                                / "0000" / f"{i:04d}.png",
+                                rng.random((size, size, 3)))
+    runs = {}
+    for d in ("cpu", cuda_device):
+        cfg = set_data_path(get_config(
+            "RefVSR_MFID", is_train=True, mode="tiny", batch_size=1,
+            patch_size=16, frame_num=3, frame_itr_num=2, num_blocks=2,
+            mid_channels=8, loss="1*L1", total_itr=2, thread_num=0,
+            data_offset=str(tmp_path), log_offset=str(tmp_path / str(d)),
+            spynet_ckpt=None, vgg19_ckpt=None), True)
+        with pytest.warns(UserWarning):
+            runner = Runner(cfg, device=d)
+        tr = runner.train(max_epochs=1)
+        runner.close()
+        with open(os.path.join(cfg.log_dir, "checkpoint", "train", "epoch",
+                               "checkpoints.txt")) as f:
+            psnr = float(f.readline().split(" ")[1])
+        runs[str(d)] = (tr, psnr)
+    (cpu, psnr_c), (card, psnr_g) = runs["cpu"], runs[str(cuda_device)]
+    assert card.opt.step == cpu.opt.step == 2
+    assert next(card.net.parameters()).device.type == "cuda"
+    for a, b in zip(cpu.window_errs, card.window_errs):
+        for k in a:
+            assert abs(float(b[k]) - float(a[k])) <= 1e-3 * abs(float(a[k]))
+    assert abs(psnr_g - psnr_c) <= 1e-2
+    bound = 2 * cpu.config.lr_init * cpu.opt.step
+    for p, q in zip(cpu.params, card.params):
+        assert float((q.detach().cpu() - p.detach()).abs().max()) <= bound
