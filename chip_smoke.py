@@ -91,6 +91,39 @@ outside a checkout of the repository. Phases, each fatal on failure:
    backward calls captured, and one is_amp window of a tiny net on the
    card against the CPU.
 
+13. small-input agreement of RefVSR-IR (run with phase 7): the tiny IR
+   net (2 blocks, 8 channels, EDVR-M at 64 channels, T = 5, offsets
+   redrawn so that the deformable convolutions sample between pixels) on
+   the card against the CPU through ``StreamRunner(keyframe_stride)``: a
+   first window and two streamed ones within 1e-3, 18 K1 and 1 K2 launches
+   each; one tiny RefVSR_IR_MFID ``Trainer.iteration`` (2 steps) with its
+   mean errors against the CPU's;
+14. the IR net's evaluation entry point at full width:
+   ``refvsr_tpu_torch.run.main(["--config", "config_RefVSR_IR_MFID",
+   "--eval_mode", "quan_qual", ...])`` (30 blocks, 36 channels, T = 9,
+   f32, seeded random weights) on a seeded RealMCVSR-layout tree (LRx4
+   270x480 in, HR 1080x1920 ground truth; two videos of 12 and 1 frames)
+   written by the port's PNG encoder: ms per window on the host, one
+   window traced (device time, idle share, top kernels), the EDVR refill
+   and the plain deformable convolutions timed apart in another, the
+   peak, 32 K1 and 1 K2 launches per window, the score file (a line per
+   frame, a MEAN line, a TOTAL line) and every PNG/JPEG dump decoded or
+   read back at its shape; then ``--eval_mode FOV`` and ``conf`` on the
+   second video, their files checked;
+15. the same CLI on RefVSR_MFID_8K: quan_qual with --quantitative_only on
+   a 1080p tree of 3 frames (f32, the metrics on the SR frame downscaled
+   by 1/4 on the card), the launches and the score file checked;
+16. one RefVSR_IR_MFID ``Trainer.iteration`` at full width and the
+   config's batch of 8 (patch 64, T = 9, 5 steps, f32): ms per step and
+   the peak; one more step with every kernel's inputs captured.
+
+The calls captured in phases 14 to 16 (each new shape of one streamed IR
+window and of the 8K CLI's first window; every backward call of one IR
+step) are held against the plain versions with the others. The paths'
+launches appear in ``launches_by_path`` as ``ir_eval``, ``eval_cli`` and
+``ir_train``. Phases 14 to 16 run under PyTorch's default f32 policy, as
+12 does.
+
 Then one ``{"kernels": [...]}`` line and, last, the device line. A kernel's
 ``ms`` there is its device time in the profiled window (forward kernels:
 the streamed window; backward kernels: the training step); ``plain_ms``,
@@ -133,8 +166,9 @@ K2_SHAPE = (32400, 129600, 144, 1000)
 TRAIN_BATCH = 2
 K2_TRAIN_SHAPE = (2 * T, 1024, 1024, 144, 16)
 # the largest K2 similarity matrix the matmul + max yardstick materialises;
-# past it, the yardstick runs one batch element at a time
-K2_LIBRARY_MAX_BYTES = 16e9
+# past it, the yardstick runs one batch element at a time (an f32 element
+# of the 1080p validation's batch is 16.8 GB, which the 80 GB card holds)
+K2_LIBRARY_MAX_BYTES = 20e9
 # the training phases start from seeded random weights: no pretrained
 # SPyNet or VGG19 is read (the Trainer warns that they are absent)
 NO_ASSETS = dict(spynet_ckpt=None, vgg19_ckpt=None)
@@ -1985,6 +2019,515 @@ def phase_train_entry(dev, card):
     return launches, summary, calls, amp_calls
 
 
+# ------------------------------------------- RefVSR-IR and the eval CLI
+
+# the IR eval tree: RealMCVSR's test layout at its size (LRx4 270x480 for
+# the UW input and the W and T references, HR 1080x1920 ground truth); two
+# videos, the second for the FOV and conf modes
+IR_HW = (270, 480)
+IR_VIDEOS = (("0000", 12), ("0001", 1))
+# the eval CLI on RefVSR_MFID_8K: a 1080p HR tree, one video
+EVAL_8K_FRAMES = 3
+# the window whose EDVR and deformable convolutions are timed apart (their
+# timers synchronise the card) and the one traced by torch.profiler; both
+# are left out of the ms per window
+IR_TIMED_WINDOW = 4
+IR_PROFILED_WINDOW = 6
+
+
+def _ir_batch(cfg, seed):
+    """A seeded training batch with RealMCVSR's geometry without HD input
+    (data/datasets.py get_patch): LR_UW p^2, LR_REF_W (2p)^2, HR_UW and
+    HR_REF_W (4p)^2, each (b, frame_num + frame_itr_num - 1, side, side,
+    3)."""
+    rng = np.random.default_rng(seed)
+    n, p = cfg.batch_size, cfg.patch_size
+    t = cfg.frame_num + cfg.frame_itr_num - 1
+
+    def img(side):
+        return rng.random((n, t, side, side, 3), dtype=np.float32)
+    return {"LR_UW": img(p), "LR_REF_W": img(2 * p), "HR_UW": img(4 * p),
+            "HR_REF_W": img(4 * p)}
+
+
+def _fractional_offsets(net, seed):
+    """Redraw the deformable convolutions' offset convs (zero at init, so
+    every tap would sit on the grid) so that the card's and the CPU's
+    samplers work at fractional positions."""
+    from refvsr_tpu_torch.models.edvr import ModulatedDCNPack
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, ModulatedDCNPack):
+                w = m.conv_offset.weight
+                w.copy_(torch.randn(w.shape, generator=gen).to(w) * 0.1)
+
+
+def phase_ir_small(dev):
+    """Tiny RefVSR-IR on the card (f32, kernels) against the CPU (f32,
+    plain versions): a first window and two streamed windows through
+    StreamRunner(keyframe_stride), each output within 1e-3, with the
+    kernels' launches per window; then one Trainer.iteration of a tiny
+    RefVSR_IR_MFID (its loss, 2 steps) on both, the mean errors within
+    rtol 2e-4 (the contextual terms 5e-3, as phase 7 allows)."""
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.losses import cx_options
+    from refvsr_tpu_torch.models.refvsr import build_refvsr
+    from refvsr_tpu_torch.models.refvsr_ir import RefVSRIRNet
+    from refvsr_tpu_torch.train.trainer import Trainer
+    t = 5
+    cfg = get_config("RefVSR_IR_MFID", num_blocks=2, mid_channels=8,
+                     frame_num=t, keyframe_stride=2, **NO_ASSETS)
+    net = build_refvsr(cfg, device="cpu", seed=3)
+    check(isinstance(net, RefVSRIRNet), "IR config built no RefVSRIRNet")
+    _fractional_offsets(net, 4)
+    gen = torch.Generator().manual_seed(5)
+    lrs = torch.rand((1, t + 2, 32, 44, 3), generator=gen)
+    refs = torch.rand((1, t + 2, 32, 44, 3), generator=gen)
+    runners = [StreamRunner(net, None, device=d, keyframe_stride=2)
+               for d in ("cpu", dev)]
+    worst, per_window = 0.0, []
+    for wi in range(3):
+        out_c = runners[0].process(lrs[:, wi:wi + t], refs[:, wi:wi + t],
+                                   wi == 0)[0]
+        reset_launches()
+        out_g = runners[1].process(lrs[:, wi:wi + t], refs[:, wi:wi + t],
+                                   wi == 0)[0]
+        n = read_launches()
+        per_window.append((n["warp_sample"], n["argmax_matmul"]))
+        worst = max(worst, float(abs(out_c - out_g).max()))
+    check(per_window == [(2 * t + 2 + 3 * (t // 2), 1)] * 3,
+          f"tiny IR windows: K1/K2 launches {per_window}")
+    check(worst <= 1e-3, f"tiny IR: card vs CPU max diff {worst} > 1e-3")
+    log(f"tiny IR (2 blocks, 8 ch, EDVR 64 ch, T={t}, 32x44, f32): first + "
+        f"2 streamed windows, card vs CPU max_abs_diff {worst:.3e} (limit "
+        f"1e-3); K1/K2 launches per window {per_window}")
+
+    cfg = get_config("RefVSR_IR_MFID", num_blocks=2, mid_channels=8,
+                     frame_num=t, frame_itr_num=2, patch_size=16,
+                     batch_size=1, keyframe_stride=2, **NO_ASSETS)
+    batch = _ir_batch(cfg, seed=6)
+    means = {}
+    for d in ("cpu", dev):
+        tr = Trainer(cfg, device=d, seed=3)
+        _fractional_offsets(tr.net, 4)
+        reset_launches()
+        means[d], _ = tr.iteration(batch)
+        launches = read_launches()
+    check(all(launches[k] > 0 for k in KERNEL_FNS),
+          f"tiny IR iteration: a kernel was not launched {launches}")
+    bad = [k for k, v in means["cpu"].items()
+           if abs(means[dev][k] - v) > (5e-3 if cx_options(k) else 2e-4)
+           * abs(v) + 1e-6]
+    log(f"tiny IR Trainer.iteration ({cfg.loss}, 2 steps, f32): mean "
+        "errors " + ", ".join(f"{k} {means[dev][k]:.6g}/{v:.6g}"
+                              for k, v in means["cpu"].items())
+        + f" (card/CPU); card launches {launches}")
+    check(not bad, f"tiny IR iteration: card vs CPU differ in {bad}")
+
+
+def write_eval_tree(root, rng, hd):
+    """A seeded RealMCVSR test split written by the port's PNG encoder:
+    with `hd` one video of EVAL_8K_FRAMES 1080p frames under HR/ (every
+    stream, as set_data_path reads it under flag_HD_in); else IR_VIDEOS
+    with LRx4/{UW,W,T} at IR_HW and HR/UW at 4x. Returns the seconds."""
+    from refvsr_tpu_torch.data.png import write_image
+    t0 = time.perf_counter()
+    base = f"{root}/RealMCVSR/test"
+    if hd:
+        for cam in ("UW", "W", "T"):
+            for i in range(EVAL_8K_FRAMES):
+                write_image(f"{base}/HR/{cam}/0000/{i:04d}.png",
+                            _scene(rng, H, W))
+        return time.perf_counter() - t0
+    h, w = IR_HW
+    for video, n in IR_VIDEOS:
+        for i in range(n):
+            for cam in ("UW", "W", "T"):
+                write_image(f"{base}/LRx4/{cam}/{video}/{i:04d}.png",
+                            _scene(rng, h, w))
+            write_image(f"{base}/HR/UW/{video}/{i:04d}.png",
+                        _scene(rng, 4 * h, 4 * w))
+    return time.perf_counter() - t0
+
+
+def _result_dir(out, mode):
+    import glob
+    dirs = glob.glob(f"{out}/RealMCVSR/*_random_init")
+    check(len(dirs) == 1, f"{mode}: result dirs {dirs}")
+    return dirs[0]
+
+
+def _score_lines(d, mode):
+    with open(f"{d}/score_RealMCVSR_{mode}.txt") as f:
+        return f.read().splitlines()
+
+
+def ir_eval_instruments(rec):
+    """Time each window (synchronised) with its K1/K2 launches; in window
+    IR_TIMED_WINDOW the EDVR refill and each deformable convolution apart,
+    by CUDA events; trace window IR_PROFILED_WINDOW; capture the kernels'
+    inputs in the window after the timed one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.models import edvr as edvr_mod
+    from refvsr_tpu_torch.models.refvsr_ir import RefVSRIRNet
+
+    def process_device(orig):
+        def f(self, *a, **k):
+            wi = len(rec["windows"])
+            rec["timed"] = wi == IR_TIMED_WINDOW
+            rec["gate"] = wi == IR_TIMED_WINDOW + 1
+            before = read_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                if wi != IR_PROFILED_WINDOW:
+                    out = orig(self, *a, **k)
+                    torch.cuda.synchronize()
+                    return out
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = orig(self, *a, **k)
+                    torch.cuda.synchronize()
+                rec["prof"] = (prof, (time.perf_counter() - t0) * 1e3)
+                return out
+            finally:
+                after = read_launches()
+                rec["windows"].append(dict(
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    k1=after["warp_sample"] - before["warp_sample"],
+                    k2=after["argmax_matmul"] - before["argmax_matmul"]))
+                rec["timed"] = rec["gate"] = False
+        return f
+
+    def timed(key):
+        def make(orig):
+            def f(*a, **k):
+                if not rec["timed"]:
+                    return orig(*a, **k)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = orig(*a, **k)
+                end.record()
+                torch.cuda.synchronize()
+                rec[key].append(start.elapsed_time(end))
+                return out
+            return f
+        return make
+
+    stack = contextlib.ExitStack()
+    for owner, name, make in (
+            (StreamRunner, "process_device", process_device),
+            (RefVSRIRNet, "compute_refill_features", timed("edvr_ms")),
+            (edvr_mod, "modulated_deform_conv", timed("dcn_ms"))):
+        stack.enter_context(patched(owner, name, make))
+    return stack
+
+
+def phase_ir_eval(dev, card):
+    """The IR net's evaluation through run.main at full width:
+    RefVSR_IR_MFID (30 blocks, 36 channels, EDVR-M 64 channels, T = 9,
+    f32, seeded random weights) on a seeded RealMCVSR-layout tree:
+    quan_qual over both videos, then FOV and conf on the second. Returns
+    (launches of the quan_qual run, summary, captured calls of one
+    streamed window at each new shape)."""
+    import tempfile
+
+    from refvsr_tpu_torch import run
+    from refvsr_tpu_torch.data.jpeg import jpeg_info
+    from refvsr_tpu_torch.data.png import read_image
+    from refvsr_tpu_torch.models import matching as matching_mod
+    from refvsr_tpu_torch.ops import warp as warp_mod
+
+    summary = dict(card=card)
+    calls = {"warp_sample": [], "argmax_matmul": []}
+    seen = {k: set() for k in calls}
+    with tempfile.TemporaryDirectory() as root:
+        summary["tree_write_s"] = write_eval_tree(
+            root, np.random.default_rng(17), hd=False)
+        n_frames = sum(n for _, n in IR_VIDEOS)
+        log(f"IR eval tree: {n_frames} frames x (3 LRx4 {IR_HW} + 1 HR) "
+            f"PNGs in {summary['tree_write_s']:.1f} s")
+        argv = ["--config", "config_RefVSR_IR_MFID", "--mode",
+                "chip_smoke_ir", "--data_offset", root, "--log_offset",
+                f"{root}/logs"]
+        cfg = run.build_config(run.build_parser().parse_args(argv))
+        check((cfg.network, cfg.num_blocks, cfg.mid_channels,
+               cfg.matching_ksize, cfg.keyframe_stride, cfg.frame_num,
+               cfg.is_amp, cfg.flag_HD_in, cfg.reset_branch)
+              == ("RefVSR_IR", 30, 36, 2, 5, 9, False, False, 5),
+              f"IR eval config {cfg}")
+
+        rec = dict(windows=[], edvr_ms=[], dcn_ms=[], timed=False,
+                   gate=False)
+        gate = lambda: rec["gate"]  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with ir_eval_instruments(rec), \
+                capturing(warp_mod, "warp_sample", calls["warp_sample"],
+                          seen["warp_sample"], when=gate), \
+                capturing(matching_mod, "argmax_matmul",
+                          calls["argmax_matmul"], seen["argmax_matmul"],
+                          when=gate):
+            t0 = time.perf_counter()
+            res = run.main(argv + ["--eval_mode", "quan_qual",
+                                   "--output_offset", f"{root}/qq"])
+            main_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        t = cfg.frame_num
+        want_k1 = 2 * t + 2 + 3 * (t // 2)
+        check([(w["k1"], w["k2"]) for w in rec["windows"]]
+              == [(want_k1, 1)] * n_frames,
+              f"IR eval windows' K1/K2 launches "
+              f"{[(w['k1'], w['k2']) for w in rec['windows']]}")
+        check(not launches["warp_sample_backward"]
+              and not launches["argmax_matmul_backward"]
+              and not any(launches[k] for k in BENCH_FNS.values()),
+              f"IR eval launched a backward kernel or K3/K4 {launches}")
+        check(res["frames"] == n_frames and np.isfinite(res["PSNR"])
+              and 0 < res["SSIM"] <= 1, f"IR eval summary {res}")
+        d = _result_dir(f"{root}/qq", "quan_qual")
+        lines = _score_lines(d, "quan_qual")
+        n_eval = sum(ln.startswith("[EVAL ") for ln in lines)
+        n_mean = sum(ln.startswith("[MEAN EVAL ") for ln in lines)
+        check(n_eval == n_frames and n_mean == 1
+              and lines[-1].startswith("[TOTAL random_init|RealMCVSR] "),
+              f"IR score file: {n_eval} frame lines, {n_mean} MEAN, last "
+              f"{lines[-1]!r}")
+        h, w = IR_HW
+        dumps = 0
+        for video, n in IR_VIDEOS:
+            for i in range(n):
+                for kind, shape in (("input", (h, w, 3)),
+                                    ("output", (4 * h, 4 * w, 3))):
+                    img = read_image(f"{d}/png/{kind}/{video}/{i:04d}.png")
+                    check(img.shape == shape and np.isfinite(img).all(),
+                          f"PNG dump {kind}/{video}/{i}: {img.shape}")
+                    with open(f"{d}/jpg/{kind}/{video}/{i:04d}.jpg",
+                              "rb") as f:
+                        check(jpeg_info(f.read()) == shape,
+                              f"JPEG dump {kind}/{video}/{i}")
+                    dumps += 2
+        ms = [w["ms"] for i, w in enumerate(rec["windows"])
+              if i not in (IR_TIMED_WINDOW, IR_PROFILED_WINDOW)]
+        timed_ms = rec["windows"][IR_TIMED_WINDOW]["ms"]
+        summary.update(
+            run_main_s=main_s, window_ms=[w["ms"] for w in rec["windows"]],
+            ms_per_window=sum(ms[1:]) / len(ms[1:]), first_window_ms=ms[0],
+            timed_window_ms=timed_ms, edvr_ms=rec["edvr_ms"],
+            edvr_share=sum(rec["edvr_ms"]) / timed_ms,
+            dcn_calls=len(rec["dcn_ms"]), dcn_ms=sum(rec["dcn_ms"]),
+            peak_bytes=peak, psnr=res["PSNR"], ssim=res["SSIM"],
+            score_lines=len(lines), dumps=dumps, launches=launches)
+        log(f"IR eval via run.main (RefVSR_IR_MFID f32, {IR_HW} -> "
+            f"{(4 * h, 4 * w)}, {n_frames} windows): {main_s:.1f} s; "
+            f"{summary['ms_per_window']:.1f} ms per streamed window on the "
+            f"host (synchronised; first window {ms[0]:.1f} ms); window "
+            f"{IR_TIMED_WINDOW}: EDVR refill "
+            + ", ".join(f"{v:.1f}" for v in rec["edvr_ms"])
+            + f" ms ({summary['edvr_share']:.3f} of its {timed_ms:.1f} ms), "
+            f"{len(rec['dcn_ms'])} plain deformable convolutions "
+            f"{summary['dcn_ms']:.1f} ms; K1/K2 launches per window "
+            f"({want_k1}, 1); peak allocated {peak / 2**30:.2f} GiB; PSNR "
+            f"{res['PSNR']:.4f} SSIM {res['SSIM']:.4f}; {len(lines)} score "
+            f"lines, {dumps} PNG/JPEG dumps decoded  [{card}]")
+
+        prof, wall_ms = rec.pop("prof")
+        in_window, summary["profiled_window"] = device_profile(
+            prof, ("warp_sample", "argmax_matmul"),
+            "IR forward_stream window", wall_ms, card, top=15)
+        summary["kernels_in_window"] = in_window
+        del prof
+
+        for mode, extra in (("FOV", []), ("conf", [])):
+            out = f"{root}/{mode}"
+            t0 = time.perf_counter()
+            res = run.main(argv + ["--eval_mode", mode, "--vid_name",
+                                   IR_VIDEOS[1][0], "--output_offset", out,
+                                   *extra])
+            secs = time.perf_counter() - t0
+            d = _result_dir(out, mode)
+            n = IR_VIDEOS[1][1]
+            if mode == "FOV":
+                lines = _score_lines(d, mode)
+                check(sum(ln.startswith("[EVAL ") for ln in lines) == n
+                      and any(ln.startswith("[PSNR-FOV_ring]")
+                              for ln in lines)
+                      and np.isfinite(res["pfi"][1.0]),
+                      f"FOV score file {lines[-4:]}")
+            else:
+                for i in range(n):
+                    for name in ("conf", "conf_prop", "conf_prop_bw",
+                                 "conf_prop_fw"):
+                        img = read_image(f"{d}/conf/{IR_VIDEOS[1][0]}/"
+                                         f"{i:04d}_{name}.png")
+                        check(img.shape == (h, w, 3), f"conf map {name}")
+                check(res["frames"] == n, f"conf: {res}")
+            summary[f"{mode}_s"] = secs
+            log(f"IR eval --eval_mode {mode} on video {IR_VIDEOS[1][0]} "
+                f"({n} frames): {secs:.1f} s, files checked  [{card}]")
+    torch.cuda.empty_cache()
+    return launches, summary, calls
+
+
+def phase_eval_cli_8k(dev, card):
+    """The eval CLI on RefVSR_MFID_8K (30 blocks, 48 channels, f32, HD
+    input, seeded random weights): quan_qual with --quantitative_only on a
+    1080p tree of EVAL_8K_FRAMES frames, the metrics on the SR frame
+    downscaled by 1/4 on the card. Returns (launches, summary, captured
+    calls of its first window at each shape)."""
+    import tempfile
+
+    from refvsr_tpu_torch import run
+    from refvsr_tpu_torch.models import matching as matching_mod
+    from refvsr_tpu_torch.ops import warp as warp_mod
+
+    calls = {"warp_sample": [], "argmax_matmul": []}
+    seen = {k: set() for k in calls}
+    state = dict(first=True)
+
+    def first_window(orig):
+        def f(self, *a, **k):
+            try:
+                return orig(self, *a, **k)
+            finally:
+                state["first"] = False
+        return f
+
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    with tempfile.TemporaryDirectory() as root:
+        tree_s = write_eval_tree(root, np.random.default_rng(19), hd=True)
+        argv = ["--config", "config_RefVSR_MFID_8K", "--mode",
+                "chip_smoke_8k", "--data_offset", root, "--log_offset",
+                f"{root}/logs", "--output_offset", f"{root}/out",
+                "--eval_mode", "quan_qual", "--quantitative_only"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with patched(StreamRunner, "process_device", first_window), \
+                capturing(warp_mod, "warp_sample", calls["warp_sample"],
+                          seen["warp_sample"],
+                          when=lambda: state["first"]), \
+                capturing(matching_mod, "argmax_matmul",
+                          calls["argmax_matmul"], seen["argmax_matmul"],
+                          when=lambda: state["first"]):
+            t0 = time.perf_counter()
+            res = run.main(argv)
+            secs = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        lines = _score_lines(_result_dir(f"{root}/out", "quan_qual"),
+                             "quan_qual")
+    check(res["frames"] == EVAL_8K_FRAMES and np.isfinite(res["PSNR"]),
+          f"8K eval summary {res}")
+    check(sum(ln.startswith("[EVAL ") for ln in lines) == EVAL_8K_FRAMES
+          and lines[-1].startswith("[TOTAL random_init|RealMCVSR] "),
+          f"8K score file {lines}")
+    want = (16 + 10 * (EVAL_8K_FRAMES - 1), EVAL_8K_FRAMES)
+    got = (launches["warp_sample"], launches["argmax_matmul"])
+    check(got == want, f"8K eval K1/K2 launches {got} != {want}")
+    summary = dict(card=card, tree_write_s=tree_s, run_main_s=secs,
+                   peak_bytes=peak, psnr=res["PSNR"], ssim=res["SSIM"],
+                   sec_per_frame=res["sec_per_frame"], launches=launches)
+    log(f"8K eval via run.main (RefVSR_MFID_8K f32, {EVAL_8K_FRAMES} "
+        f"windows, quantitative only, metrics on the card's 1/4 "
+        f"downscale): {secs:.1f} s (tree {tree_s:.1f} s); PSNR "
+        f"{res['PSNR']:.4f} SSIM {res['SSIM']:.4f}; K1/K2 launches {got}; "
+        f"peak allocated {peak / 2**30:.2f} GiB  [{card}]")
+    torch.cuda.empty_cache()
+    return launches, summary, calls
+
+
+def phase_ir_train(dev, card):
+    """One RefVSR_IR_MFID Trainer.iteration at full width and the config's
+    batch of 8 (patch 64, T = 9, 5 steps, its loss, f32), then one more
+    step with every kernel's inputs captured (forward kernels once per
+    shape, backward kernels at every call). Returns (launches, summary,
+    captured calls)."""
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.models import matching as matching_mod
+    from refvsr_tpu_torch.models.refvsr_ir import sliding_keyframe_mask
+    from refvsr_tpu_torch.ops import warp as warp_mod
+    from refvsr_tpu_torch.ops.kernels import argmax_matmul as k2_mod
+    from refvsr_tpu_torch.ops.kernels import warp_sample as k1_mod
+    from refvsr_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("RefVSR_IR_MFID", **NO_ASSETS)
+    check((cfg.num_blocks, cfg.mid_channels, cfg.batch_size,
+           cfg.patch_size, cfg.frame_num, cfg.frame_itr_num,
+           cfg.keyframe_stride, cfg.is_amp, cfg.matching_ksize)
+          == (30, 36, 8, 64, 9, 5, 5, False, 2), f"IR training {cfg}")
+    batch = _ir_batch(cfg, seed=23)
+    tr = Trainer(cfg, device=dev, seed=0)
+    step_ms = []
+    train_step = tr.train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tr.train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    means, state = tr.iteration(batch)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del tr.train_step
+    check(len(step_ms) == cfg.frame_itr_num
+          and all(np.isfinite(v) for v in means.values()),
+          f"IR iteration: {len(step_ms)} steps, means {means}")
+    check(all(launches[k] > 0 for k in KERNEL_FNS)
+          and not any(launches[k] for k in BENCH_FNS.values()),
+          f"IR training: a kernel was not launched, or K3/K4 was "
+          f"{launches}")
+    steady = step_ms[1:]
+    summary = dict(card=card, batch=cfg.batch_size, step_ms=step_ms,
+                   ms_per_step=sum(steady) / len(steady), peak_bytes=peak,
+                   mean_errors=means, launches=launches)
+    log(f"IR training (RefVSR_IR_MFID f32, batch {cfg.batch_size}, patch "
+        f"{cfg.patch_size}, T {cfg.frame_num}): steps "
+        + ", ".join(f"{m:.1f}" for m in step_ms)
+        + f" ms; {summary['ms_per_step']:.1f} ms per step (steps 2-"
+        f"{len(step_ms)}); peak allocated {peak / 2**30:.2f} GiB; mean "
+        f"errors {means}; launches {launches}  [{card}]")
+
+    arrays = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    calls = {name: [] for name in KERNEL_FNS}
+    seen = {"warp_sample": set(), "argmax_matmul": set()}
+    t = cfg.frame_num
+    i = cfg.frame_itr_num - 1
+    mask = sliding_keyframe_mask(t, cfg.keyframe_stride, 1)[0]
+    with capturing(warp_mod, "warp_sample", calls["warp_sample"],
+                   seen["warp_sample"]), \
+            capturing(matching_mod, "argmax_matmul", calls["argmax_matmul"],
+                      seen["argmax_matmul"]), \
+            capturing(k1_mod, "warp_sample_backward",
+                      calls["warp_sample_backward"]), \
+            capturing(k2_mod, "argmax_matmul_backward",
+                      calls["argmax_matmul_backward"]):
+        tr.train_step(state, arrays["LR_UW"][:, i:i + t],
+                      arrays["LR_REF_W"][:, i:i + t],
+                      arrays["HR_UW"][:, i + t // 2],
+                      arrays["HR_REF_W"][:, :i + t], mask)
+        torch.cuda.synchronize()
+    summary["step_calls"] = {k: len(v) for k, v in calls.items()}
+    log(f"IR training step captured: {summary['step_calls']}")
+    del tr, arrays, state
+    torch.cuda.empty_cache()
+    return launches, summary, calls
+
+
 def _shape(t):
     return "x".join(str(v) for v in t.shape)
 
@@ -2172,6 +2715,7 @@ def main():
     launches, bench = phase_microbench(card)
     phase_small_agreement(dev)
     phase_small_training(dev)
+    phase_ir_small(dev)
     torch.cuda.empty_cache()
     launches["stream"], windows, peak, in_path, stream_calls, first_calls = \
         phase_main_path(dev, card)
@@ -2188,19 +2732,36 @@ def main():
             phase_train_entry(dev, card)
         entry["phase_s"] = time.perf_counter() - t0
         log(f"training entry point phase: {entry['phase_s']:.1f} s")
+        to_host(entry_calls, amp_calls)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches["ir_eval"], ir_eval, ir_calls = phase_ir_eval(dev, card)
+        to_host(ir_calls)
+        launches["eval_cli"], eval_cli, cli_calls = phase_eval_cli_8k(dev,
+                                                                      card)
+        to_host(cli_calls)
+        launches["ir_train"], ir_train, ir_train_calls = phase_ir_train(
+            dev, card)
+        to_host(ir_train_calls)
+        log(f"IR and eval CLI phases: {time.perf_counter() - t0:.1f} s")
     launches["train_amp"] = entry["amp"]["launches"]
     on_path = path_cases(stream_calls, first_calls, train_calls,
                          {"predict": serve_calls,
                           "pipelined dispatch": pipe_calls,
                           "train entry (step 1, validation window 0)":
                           entry_calls,
-                          "is_amp step": amp_calls})
+                          "is_amp step": amp_calls,
+                          "IR eval window (forward_stream)": ir_calls,
+                          "8K eval CLI (forward_first)": cli_calls,
+                          "IR train step": ir_train_calls})
     kernels = kernels_line(synthetic, on_path, in_path, in_step, launches,
                            bench)
     log(json.dumps(dict(main_path=dict(card=card, windows=windows,
                                        peak_bytes=peak), serving=serving,
                         pipelined=pipelined, training=train,
-                        train_entry=entry)))
+                        train_entry=entry, ir_eval=ir_eval,
+                        eval_cli=eval_cli, ir_train=ir_train),
+                   default=str))
     log(json.dumps(dict(kernels=kernels)))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s  [{card}]")
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,8 @@ the microbenchmarks in ``bench``), ``models``, ``losses``, ``train``,
 return NHWC tensors, like the JAX package.
 
 Device: entry points (``eval.stream.StreamRunner``,
-``models.refvsr.build_refvsr``, ``train.trainer.Trainer``, the
-microbenchmarks' ``run``) run on
+``models.refvsr.build_refvsr``, ``train.trainer.Trainer``,
+``eval.runner.evaluate``, the microbenchmarks' ``run``) run on
 ``"cuda"`` unless the caller passes ``device="cpu"``; asking for ``"cuda"``
 without a card raises. A kernel wrapper runs its plain version only for
 CPU tensors; for CUDA tensors it launches its kernel or raises, and so does

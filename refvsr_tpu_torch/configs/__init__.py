@@ -8,9 +8,7 @@ reads back, from either package.
 
 Fields that act only where the port has no counterpart yet are kept so that
 a ``config.json`` round-trips: ``spatial_devices``/``spatial_halo`` (values
-above 1 are refused by ``run.main``, ROADMAP Queue 1, item 7) and
-``keyframe_stride`` with ``network="RefVSR_IR"`` (``build_refvsr`` and the
-Trainer refuse it, Queue 1, item 5)."""
+above 1 are refused by ``run.main``, ROADMAP Queue 1, item 7)."""
 
 from __future__ import annotations
 

@@ -12,7 +12,12 @@ finished outputs, each with the caller's ``meta``; ``flush()`` drains the
 chains in flight at a video's end on windows made by repeating the last
 frame (the dataset's end-of-clip clamp, so the drained outputs equal the
 plain stream's). In plain mode ``submit`` returns the window's own output
-and ``flush`` returns nothing, so callers use one code path for both."""
+and ``flush`` returns nothing, so callers use one code path for both.
+
+RefVSR-IR (``keyframe_stride`` set): each window gets a sliding keyframe
+mask (``models/refvsr_ir.sliding_keyframe_mask``), whose first keyframe
+carries over from window to window and starts again with the branch; the
+IR net streams without pipelining."""
 
 from __future__ import annotations
 
@@ -33,11 +38,16 @@ class StreamRunner:
     the net itself when its parameters already lie there in that dtype,
     else a copy moved and cast there (a trainer's f32 net validated in
     bf16 keeps its f32 parameters, and its training mode). `pipeline_lanes`
-    must be the net's own (0 or 1 for the plain stream)."""
+    must be the net's own (0 or 1 for the plain stream).
+    `keyframe_stride`: the IR net's keyframe stride (None for RefVSR)."""
 
     def __init__(self, net, reset_branch: Optional[int], device="cuda",
-                 compute_dtype=torch.float32, pipeline_lanes: int = 0):
+                 compute_dtype=torch.float32, pipeline_lanes: int = 0,
+                 keyframe_stride: Optional[int] = None):
         self.device = resolve_device(device)
+        if keyframe_stride is not None and pipeline_lanes > 1:
+            raise ValueError("the IR net (keyframe_stride set) streams "
+                             "without pipelining: pipeline_lanes must be 0")
         if max(pipeline_lanes, 1) != max(net.pipeline_lanes, 1):
             raise ValueError(f"pipeline_lanes={pipeline_lanes}, but the net "
                              f"was built with {net.pipeline_lanes}")
@@ -57,6 +67,8 @@ class StreamRunner:
                                              dtype=compute_dtype).eval()
         self.reset_branch = reset_branch
         self.pipeline_lanes = pipeline_lanes
+        self.keyframe_stride = keyframe_stride
+        self.kf_first: Optional[int] = None
         self.state = None
         self.count = 0
         self._pending = []        # metas of the outputs still in flight
@@ -80,13 +92,23 @@ class StreamRunner:
         if self.reset_branch is not None and self.count == self.reset_branch:
             is_first = True
         lrs, refs = self._as_input(lrs), self._as_input(refs)
+        first = is_first or self.state is None
+        kf = ()
+        if self.keyframe_stride is not None:
+            from refvsr_tpu_torch.models.refvsr_ir import \
+                sliding_keyframe_mask
+            mask, self.kf_first = sliding_keyframe_mask(
+                lrs.shape[1], self.keyframe_stride,
+                None if first else self.kf_first)
+            kf = (mask,)
         with torch.inference_mode():
-            if is_first or self.state is None:
-                out, self.state, conf = self.net.forward_first(lrs, refs)
+            if first:
+                out, self.state, conf = self.net.forward_first(lrs, refs,
+                                                               *kf)
                 self.count = 0
             else:
-                out, self.state, conf = self.net.forward_stream(lrs, refs,
-                                                                self.state)
+                out, self.state, conf = self.net.forward_stream(
+                    lrs, refs, self.state, *kf)
         self.count += 1
         return out, conf
 

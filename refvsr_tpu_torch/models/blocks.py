@@ -131,7 +131,8 @@ def init_weights(module: nn.Module, generator: torch.Generator):
     """Seeded random init with the JAX package's distributions: every conv
     uniform(+-1/sqrt(fan_in)) for weight and bias (torch's default), except
     the convs of ResidualBlockNoBN, whose weights are kaiming-normal * 0.1
-    (mmedit default_init_weights). Draws on the CPU from `generator`."""
+    (mmedit default_init_weights); then each module's own ``seeded_init``,
+    where it has one. Draws on the CPU from `generator`."""
     scaled = set()
     for m in module.modules():
         if isinstance(m, ResidualBlockNoBN):
@@ -151,3 +152,7 @@ def init_weights(module: nn.Module, generator: torch.Generator):
         if m.bias is not None:
             m.bias.copy_((torch.rand(m.bias.shape, generator=generator) * 2
                           - 1) * bound)
+    # modules with parameters of their own (EDVR's deformable convolution)
+    for m in module.modules():
+        if hasattr(m, "seeded_init"):
+            m.seeded_init(generator)

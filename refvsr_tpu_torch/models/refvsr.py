@@ -606,23 +606,25 @@ class RefVSRNet(nn.Module):
 
 def build_refvsr(config, device="cuda", dtype=torch.float32,
                  seed: int = 0) -> RefVSRNet:
-    """A RefVSRNet for `config` (zero flows under ``EVAL.is_gradio``, its
-    ``pipeline_lanes``) with seeded random weights, cast to `dtype` and
-    placed on `device` (the card unless the caller asks for the CPU). A
-    training config (``is_train``) builds the plain stream, as the JAX
-    package's ``build_network`` does."""
+    """The network of `config` (``network`` "RefVSR" or "RefVSR_IR"; zero
+    flows under ``EVAL.is_gradio``; RefVSR's ``pipeline_lanes``) with
+    seeded random weights, cast to `dtype` and placed on `device` (the card
+    unless the caller asks for the CPU). A training config (``is_train``)
+    builds the plain stream, as the JAX package's ``build_network``
+    does."""
     from refvsr_tpu_torch.utils.precision import cast_floating
-    if config.network != "RefVSR":
-        raise NotImplementedError(
-            f"network {config.network!r} is not ported (ROADMAP Queue 1, "
-            "item 5: RefVSR-IR/EDVR)")
     dev = resolve_device(device)
-    net = RefVSRNet(scale=config.scale, num_blocks=config.num_blocks,
-                    mid_channels=config.mid_channels,
-                    matching_ksize=config.matching_ksize,
-                    flag_HD_in=config.flag_HD_in,
-                    zero_flow=config.EVAL.is_gradio,
-                    pipeline_lanes=(0 if config.is_train
-                                    else config.pipeline_lanes))
+    kw = dict(scale=config.scale, num_blocks=config.num_blocks,
+              mid_channels=config.mid_channels,
+              matching_ksize=config.matching_ksize,
+              flag_HD_in=config.flag_HD_in, zero_flow=config.EVAL.is_gradio)
+    if config.network == "RefVSR":
+        net = RefVSRNet(pipeline_lanes=(0 if config.is_train
+                                        else config.pipeline_lanes), **kw)
+    elif config.network == "RefVSR_IR":
+        from refvsr_tpu_torch.models.refvsr_ir import RefVSRIRNet
+        net = RefVSRIRNet(keyframe_stride=config.keyframe_stride, **kw)
+    else:
+        raise KeyError(f"unknown network {config.network!r}")
     init_weights(net, torch.Generator().manual_seed(seed))
     return cast_floating(net.to(dev), dtype).eval()

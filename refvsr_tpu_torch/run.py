@@ -4,11 +4,18 @@ at the repository root). Training:
     python -m refvsr_tpu_torch.run --is_train --mode RefVSR_MFID_8K \\
         --config config_RefVSR_MFID_8K -b 2 --data_offset ./datasets
 
-runs on the card; ``-cpu`` runs on the CPU. Evaluation (without
-``--is_train``) is not ported yet (ROADMAP Queue 1, item 6), nor is more
-than one device (``--devices``/``--spatial_devices`` above 1, Queue 1,
-item 7): both exit with a message. ``-dist`` is accepted and changes
-nothing, as in the JAX package."""
+Evaluation (``--eval_mode`` quan_qual, FOV or conf; ``eval/runner.py``):
+
+    python -m refvsr_tpu_torch.run --mode RefVSR_IR_MFID \\
+        --config config_RefVSR_IR_MFID --eval_mode quan_qual \\
+        --data_offset ./datasets --output_offset ./out
+
+Both run on the card; ``-cpu`` runs on the CPU. Without ``--config`` an
+evaluation rebuilds the config from the training run's ``config.json``
+(``<log_offset>/<project>/<mode>/config/``) where there is one. More than
+one device (``--devices``/``--spatial_devices`` above 1, ROADMAP Queue 1,
+item 7) exits with a message. ``-dist`` is accepted and changes nothing,
+as in the JAX package."""
 
 from __future__ import annotations
 
@@ -74,9 +81,14 @@ def build_parser():
 
 
 def build_config(args):
-    """Variant (``--config`` or ``config_<mode>``), then the flags that were
-    given, then the training data paths."""
-    from refvsr_tpu_torch.configs import get_config, set_data_path
+    """Variant (``--config`` or ``config_<mode>``; for an evaluation
+    without ``--config``, the training run's ``config.json`` where it
+    exists), then the flags that were given, then the data paths: the
+    training ones, and for an evaluation the test split's too."""
+    import os
+
+    from refvsr_tpu_torch.configs import (get_config, load_config,
+                                          set_data_path)
 
     name = args.config or f"config_{args.mode}"
     overrides = {"mode": args.mode, "is_train": args.is_train,
@@ -97,7 +109,16 @@ def build_config(args):
     if args.is_verbose:
         overrides["is_verbose"] = True
 
-    c = get_config(name, **overrides)
+    saved_json = None
+    if not args.is_train and args.config is None:
+        cand = os.path.join(args.log_offset or "./logs", args.project,
+                            args.mode, "config", "config.json")
+        if os.path.exists(cand):
+            saved_json = cand
+    if saved_json is not None:
+        c = load_config(saved_json).replace(**overrides)
+    else:
+        c = get_config(name, **overrides)
 
     ev = dataclasses.replace(
         c.EVAL, eval_mode=args.eval_mode, ckpt_name=args.ckpt_name,
@@ -107,11 +128,15 @@ def build_config(args):
         quantitative_only=args.quantitative_only,
         vid_name=args.vid_name, test_set=args.test_set,
         is_debug=args.is_debug)
-    return set_data_path(c.replace(EVAL=ev), is_train=True)
+    c = set_data_path(c.replace(EVAL=ev), is_train=args.is_train)
+    if not args.is_train:
+        c = set_data_path(c, is_train=True)
+    return c
 
 
 def main(argv=None):
-    """Parse `argv`, seed, and train: returns the Runner."""
+    """Parse `argv`, seed, and train (returns the Runner) or evaluate
+    (returns the summary)."""
     args = build_parser().parse_args(argv)
     for flag in ("devices", "spatial_devices"):
         n = getattr(args, flag)
@@ -119,19 +144,22 @@ def main(argv=None):
             raise SystemExit(
                 f"--{flag} {n}: the port runs on one device (more than one "
                 "is ROADMAP Queue 1, item 7)")
-    if not args.is_train:
-        raise SystemExit("evaluation is not ported yet (ROADMAP Queue 1, "
-                         "item 6); pass --is_train to train")
     config = build_config(args)
+    device = "cpu" if args.cpu else "cuda"
 
     random.seed(config.manual_seed)
     np.random.seed(config.manual_seed)
+    if not args.is_train:
+        from refvsr_tpu_torch.eval.runner import evaluate
+        summary = evaluate(config, device=device)
+        print(summary)
+        return summary
 
     if args.delete_log and args.resume is None and args.resume_abs is None:
         from refvsr_tpu_torch.utils.console import handle_directory
         handle_directory(config, True)
     from refvsr_tpu_torch.train.runner import Runner
-    runner = Runner(config, device="cpu" if args.cpu else "cuda")
+    runner = Runner(config, device=device)
     try:
         if args.resume is not None:
             runner.resume(int(args.resume))

@@ -86,10 +86,11 @@ class Runner:
         """Copy the model and trainer sources into the log dir, so a run's
         code can be reconstructed."""
         import refvsr_tpu_torch.models.refvsr as m_refvsr
+        import refvsr_tpu_torch.models.refvsr_ir as m_ir
         import refvsr_tpu_torch.train.trainer as m_trainer
         dst = Path(self.config.log_dir) / "source_snapshot"
         dst.mkdir(parents=True, exist_ok=True)
-        for mod in (m_refvsr, m_trainer):
+        for mod in (m_refvsr, m_ir, m_trainer):
             shutil.copy2(mod.__file__, dst / os.path.basename(mod.__file__))
 
     @property
@@ -252,7 +253,10 @@ class Runner:
         t = cfg.frame_num
         runner = StreamRunner(self.trainer.net, cfg.reset_branch,
                               device=self.device,
-                              compute_dtype=self.trainer.compute_dtype)
+                              compute_dtype=self.trainer.compute_dtype,
+                              keyframe_stride=(cfg.keyframe_stride
+                                               if cfg.network == "RefVSR_IR"
+                                               else None))
         vals = []
         n = len(self.valid_ds) if max_items is None else min(
             max_items, len(self.valid_ds))

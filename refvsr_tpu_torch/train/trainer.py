@@ -1,6 +1,6 @@
 """Sliding-window recurrent trainer; counterpart of
 ``refvsr_tpu/train/trainer.py`` (the reference's trainers/trainer.py and
-baseTrainer.py) for the RefVSR network.
+baseTrainer.py) for the RefVSR and RefVSR-IR networks.
 
 Semantics kept from the JAX package:
 
@@ -8,6 +8,8 @@ Semantics kept from the JAX package:
   per batch; the recurrent state is re-initialised at window 0 and carried,
   detached, from one step to the next;
 - the MFID ref set grows with the window position (``HR_REF_*[:, :i+t]``);
+- the IR network (``RefVSR_IR``) gets a sliding keyframe mask per window,
+  anchored again at each batch's first window;
 - the update is optax's ``chain(clip_by_global_norm(gc),
   scale_by_adam(beta1, 0.999, 1e-8), scale_by_learning_rate(schedule))``:
   the global norm over all trained gradients, ``g * gc / norm`` when
@@ -40,6 +42,7 @@ from refvsr_tpu_torch import resolve_device
 from refvsr_tpu_torch.losses import LossModule
 from refvsr_tpu_torch.models.blocks import init_weights
 from refvsr_tpu_torch.models.refvsr import build_refvsr, init_stream_state
+from refvsr_tpu_torch.models.refvsr_ir import sliding_keyframe_mask
 from refvsr_tpu_torch.train import schedule as schedules
 from refvsr_tpu_torch.utils.convert import load_pretrained_assets
 
@@ -81,11 +84,11 @@ class ClippedAdam:
 
 class Trainer:
     """Holds the network, the loss module and the optimizer state of one
-    training run. ``device`` is the card unless the caller asks for the
-    CPU; ``seed`` (default ``config.manual_seed``) seeds the random
-    weights of the network and of the loss VGGs, which the pretrained
-    assets then overwrite where the configured files exist (``assets``
-    reports what was filled)."""
+    training run (RefVSR or RefVSR-IR). ``device`` is the card unless the
+    caller asks for the CPU; ``seed`` (default ``config.manual_seed``)
+    seeds the random weights of the network and of the loss VGGs, which
+    the pretrained assets then overwrite where the configured files exist
+    (``assets`` reports what was filled)."""
 
     def __init__(self, config, device="cuda", seed: Optional[int] = None):
         self.config = config
@@ -112,18 +115,21 @@ class Trainer:
         """The rate of the next update."""
         return float(self.schedule(self.opt.step))
 
-    def gradients(self, state, lrs, refs, hr, ref_frames):
+    def gradients(self, state, lrs, refs, hr, ref_frames,
+                  keyframe_mask=None):
         """forward_train and the loss on one window, and the loss's
-        gradients. Returns (errs dict, out, new detached state, grads: a
-        tensor or None per entry of ``self.params``)."""
+        gradients. `keyframe_mask`: the IR net's (None for RefVSR).
+        Returns (errs dict, out, new detached state, grads: a tensor or
+        None per entry of ``self.params``)."""
         cdt = self.compute_dtype
+        kf = () if keyframe_mask is None else (keyframe_mask,)
         if cdt == torch.float32:
-            out, new_state = self.net.forward_train(lrs, refs, state)
+            out, new_state = self.net.forward_train(lrs, refs, state, *kf)
         else:
             # the net holds no buffers; its parameters are all floating
             cast = {k: p.to(cdt) for k, p in self.net.named_parameters()}
             out, new_state = torch.func.functional_call(
-                self.net, cast, (lrs.to(cdt), refs.to(cdt), state))
+                self.net, cast, (lrs.to(cdt), refs.to(cdt), state, *kf))
         errs = self.loss_mod(out.float(), hr, ref_frames)
         grads = torch.autograd.grad(errs["total"], self.params,
                                     allow_unused=True)
@@ -131,12 +137,13 @@ class Trainer:
 
     # ---------------- one window ----------------
 
-    def train_step(self, state, lrs, refs, hr, ref_frames):
+    def train_step(self, state, lrs, refs, hr, ref_frames,
+                   keyframe_mask=None):
         """One optimizer step on one window: forward_train, the loss, its
         gradients, the update. Returns (errs dict of detached f32 scalars,
         the new detached state)."""
         errs, _, new_state, grads = self.gradients(state, lrs, refs, hr,
-                                                   ref_frames)
+                                                   ref_frames, keyframe_mask)
         self.opt.update(grads)
         return {k: v.detach().float() for k, v in errs.items()}, new_state
 
@@ -160,16 +167,21 @@ class Trainer:
         n, total, h, w = lr_all.shape[:4]
         sums = {}
         norm = 0
-        state = None
+        state = kf_mask = None
+        kf_first = None
         self.window_errs = []
         for i in range(total - (t - 1)):
             if i == 0:
                 state = init_stream_state(n, h, w, cfg.mid_channels,
                                           self.compute_dtype, num_frames=t,
                                           device=self.device)
+                kf_first = None
+            if cfg.network == "RefVSR_IR":
+                kf_mask, kf_first = sliding_keyframe_mask(
+                    t, cfg.keyframe_stride, kf_first)
             errs, state = self.train_step(
                 state, lr_all[:, i:i + t], ref_all[:, i:i + t],
-                hr_all[:, i + t // 2], hr_ref_all[:, :i + t])
+                hr_all[:, i + t // 2], hr_ref_all[:, :i + t], kf_mask)
             norm += n
             self.window_errs.append(errs)
             for k, v in errs.items():

@@ -4,9 +4,9 @@ The port's modules carry the reference torch state-dict keys, so a reference
 ``.pytorch`` checkpoint loads with ``load_reference_state_dict``. The JAX
 package's parameters (a flax tree) come across with ``params_from_jax``,
 which maps every flax leaf path to its reference key with this module's own
-copy of the rules of ``refvsr_tpu/utils/convert.py:_torch_key_for`` (the
-RefVSR subset) and transposes conv kernels HWIO -> OIHW. The JAX
-``LossModule``'s parameters (``cx_<type>/vgg/conv_<i>``) come across into
+copy of the rules of ``refvsr_tpu/utils/convert.py:_torch_key_for`` (those
+of RefVSR and of RefVSR-IR's EDVR) and transposes conv kernels HWIO ->
+OIHW. The JAX ``LossModule``'s parameters (``cx_<type>/vgg/conv_<i>``) come across into
 the port's ``losses.LossModule`` with ``loss_params_from_jax``.
 
 The pretrained third-party assets that the reference loads at model
@@ -32,21 +32,29 @@ def _torch_key_for(path: tuple, leaf_shape) -> str:
     """flax param path (without 'params') -> reference state-dict key."""
     names = list(path)
     leaf = names.pop()
-    suffix = "weight" if leaf == "kernel" else "bias"
+    # ModulatedDCNPack declares its own torch-named weight and bias
+    suffix = "weight" if leaf in ("kernel", "weight") else "bias"
     under_flownet = bool(names) and names[0] == "FlowNet"
     fixed = {"feat_fusion2_1": "feat_fusion2_1.0", "input_conv": "main.0",
              "conv1_0": "conv1.0", "conv1_res": "conv1.2",
              "p_conv_0": "p_conv.0", "p_conv_res": "p_conv.2",
              "p_conv_out": "p_conv.4"}
     out = []
-    for n in names:
+    for i, n in enumerate(names):
+        nxt = names[i + 1] if i + 1 < len(names) else None
+        m_fe = re.fullmatch(r"feature_extraction_(\d+)", n)
+        m_lvl = re.fullmatch(r"(offset_conv\d|dcn_pack|feat_conv)_l(\d)", n)
         m_bm = re.fullmatch(r"basic_module_(\d+)", n)
         m_conv = re.fullmatch(r"conv_(\d+)", n)
         m_rb = re.fullmatch(r"RBs_(\d+)", n)
         m_blk = re.fullmatch(r"block_(\d+)", n)
         m_seq = re.fullmatch(r"(.+)_seq([01])", n)
         m_enc = re.fullmatch(r"ref_encoder([12])_([01])", n)
-        if m_bm:        # SPyNet module list
+        if m_fe:        # EDVR's make_layer Sequential
+            out.append(f"feature_extraction.{m_fe.group(1)}")
+        elif m_lvl:     # PCDAlignment's ModuleDicts keyed l<i>
+            out.append(f"{m_lvl.group(1)}.l{m_lvl.group(2)}")
+        elif m_bm:      # SPyNet module list
             out.append(f"basic_module.{m_bm.group(1)}")
         elif n == "match0":
             # the 1x1 match conv lives INSIDE feature_extract as map{64|128};
@@ -72,7 +80,11 @@ def _torch_key_for(path: tuple, leaf_shape) -> str:
             out.append(f"main.2.{m_blk.group(1)}")
         elif n in fixed:
             out.append(fixed[n])
-        elif n != "conv":           # the Conv2d wrapper's inner conv
+        elif n != "conv":
+            out.append(n)
+        elif nxt == "conv":
+            # the Conv2d wrapper's inner conv is dropped; a doubled one is
+            # an mmcv ConvModule's own ``conv``
             out.append(n)
     return ".".join(out) + "." + suffix
 

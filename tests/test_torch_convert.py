@@ -92,7 +92,8 @@ def test_build_refvsr_is_seeded():
 
 def _port_files():
     """Every module of the port, and what runs on the card's machine,
-    which has neither JAX nor PIL, cv2, imageio or tensorboard."""
+    which has neither JAX nor PIL, cv2, imageio, matplotlib or
+    tensorboard."""
     files = sorted((ROOT / "refvsr_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py"]
 
@@ -112,11 +113,49 @@ def test_port_files_include_the_training_entry_slice():
         "utils/profiling", "utils/events", "run")} <= names
 
 
+def test_port_files_include_the_ir_and_eval_slice():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {f"refvsr_tpu_torch/{m}.py" for m in (
+        "models/edvr", "models/refvsr_ir", "eval/metrics", "eval/runner",
+        "data/jpeg", "utils/colormap")} <= names
+
+
+def test_params_from_jax_loads_the_ir_net():
+    """Every leaf of the JAX IR net (EDVR's level-keyed PCD convs, its
+    make_layer blocks, mmcv ConvModules' doubled conv, the deformable
+    convolutions' own weight and bias) maps to the key the JAX key map
+    gives it, and the port's IR net loads the result strictly."""
+    from refvsr_tpu.models.refvsr_ir import RefVSRIRNet as JaxIRNet
+    from refvsr_tpu_torch.models.refvsr_ir import RefVSRIRNet
+    jnet = JaxIRNet(scale=4, num_blocks=1, mid_channels=8,
+                    keyframe_stride=2)
+    x = jnp.zeros((1, 5, 8, 8, 3))
+    r = jnp.zeros((1, 5, 16, 16, 3))
+    shapes = jax.eval_shape(lambda: jnet.init(
+        jax.random.PRNGKey(0), x, r, init_stream_state(1, 8, 8, 8,
+                                                       num_frames=5),
+        np.ones(5, bool)))
+    rng = np.random.default_rng(0)
+    tree = jax.tree_util.tree_map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32), shapes)
+    sd = params_from_jax(tree)
+    want = _fix_match0_bias_keys(flax_to_torch_keymap(tree["params"]), sd)
+    assert set(sd) == set(want)
+    dcn = "edvr.pcd_alignment.dcn_pack.l1.weight"
+    assert dcn in sd and tuple(sd[dcn].shape) == (64, 64, 3, 3)
+    np.testing.assert_array_equal(
+        sd[dcn].numpy(), tree["params"]["edvr"]["pcd_alignment"][
+            "dcn_pack_l1"]["weight"].transpose(3, 2, 0, 1))
+    net = RefVSRIRNet(scale=4, num_blocks=1, mid_channels=8,
+                      keyframe_stride=2)
+    net.load_state_dict(sd, strict=True)
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     banned = {"jax", "jaxlib", "flax", "refvsr_tpu", "PIL", "cv2",
-              "imageio", "tensorboard"}
+              "imageio", "tensorboard", "matplotlib"}
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]

@@ -39,7 +39,13 @@ zlib and numpy (no card needed: it also runs on the CPU); K1 at batch 2 on
 zero flows (a pipelined dispatch's lanes) against its plain version; and
 the ``Predictor`` on the card against its CPU run of the same seeded
 weights, both in f32 with TF32 off, within the 1e-3 that ``chip_smoke.py``
-allows the stream's card-vs-CPU check."""
+allows the stream's card-vs-CPU check.
+
+RefVSR-IR and the eval CLI: the plain deformable convolution on the card
+against the CPU within 1e-5 of the largest output (f32, TF32 off); a tiny
+IR net's windows on the card against the CPU within 1e-3, with the
+kernels' launches per window; the JPEG encoder's header and the inferno
+table (no card needed)."""
 
 import os
 
@@ -663,3 +669,88 @@ def test_runner_epoch_card_matches_cpu(cuda_device, tmp_path):
     bound = 2 * cpu.config.lr_init * cpu.opt.step
     for p, q in zip(cpu.params, card.params):
         assert float((q.detach().cpu() - p.detach()).abs().max()) <= bound
+
+
+# ------------------------------------------- RefVSR-IR and the eval CLI
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dg", [8, 4])
+def test_deform_conv_card_matches_cpu(gen, cuda_device, dg):
+    """The plain deformable convolution (not a kernel: gathers and one
+    matmul) on the card against the CPU, f32 with TF32 off, fractional and
+    far out-of-range offsets: within 1e-5 of the largest output."""
+    from refvsr_tpu_torch.models.edvr import (modulated_deform_conv,
+                                              modulated_deform_conv_plain)
+    n, h, w, c, o = 2, 34, 60, 64, 64
+    x = gen.standard_normal((n, h, w, c)).astype(np.float32)
+    off = (gen.standard_normal((n, h, w, 2 * dg * 9)) * 3).astype(
+        np.float32)
+    off[:, :2, :, ::3] += 40.0
+    mask = gen.random((n, h, w, dg * 9)).astype(np.float32)
+    wgt = (gen.standard_normal((o, c, 3, 3)) * 0.05).astype(np.float32)
+    bias = gen.standard_normal(o).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, off, mask, wgt, bias)]
+    want = modulated_deform_conv(*args, dg)
+    got = modulated_deform_conv(*(a.to(cuda_device) for a in args), dg)
+    plain = modulated_deform_conv_plain(
+        *(a.to(cuda_device) for a in args), dg)
+    lim = 1e-5 * float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= lim
+    assert float((plain.cpu() - want).abs().max()) <= lim
+
+
+@pytest.mark.cuda
+def test_ir_window_card_matches_cpu(cuda_device):
+    """A tiny RefVSR-IR (2 blocks, 8 channels, EDVR at 64, T = 5, offsets
+    redrawn to sample between pixels) streams a first and two further
+    windows on the card, through the kernels, within the 1e-3 that
+    ``chip_smoke.py`` allows the stream's card-vs-CPU check, with
+    2T + 2 + 3(T // 2) K1 launches per window (18 here, 32 at the
+    config's T = 9) and one K2 launch."""
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.models.edvr import ModulatedDCNPack
+    from refvsr_tpu_torch.models.refvsr import build_refvsr
+    t = 5
+    cfg = get_config("RefVSR_IR_MFID", num_blocks=2, mid_channels=8,
+                     frame_num=t, keyframe_stride=2)
+    net = build_refvsr(cfg, device="cpu", seed=3)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, ModulatedDCNPack):
+                m.conv_offset.weight.copy_(torch.randn(
+                    m.conv_offset.weight.shape, generator=g) * 0.1)
+    lrs = torch.rand((1, t + 2, 30, 42, 3), generator=g)
+    refs = torch.rand((1, t + 2, 30, 42, 3), generator=g)
+    runners = [StreamRunner(net, None, device=d, keyframe_stride=2)
+               for d in ("cpu", cuda_device)]
+    for wi in range(3):
+        a, b = lrs[:, wi:wi + t], refs[:, wi:wi + t]
+        want = runners[0].process(a, b, wi == 0)[0]
+        k1, k2 = warp_sample.launches, argmax_matmul.launches
+        got = runners[1].process(a, b, wi == 0)[0]
+        assert (warp_sample.launches - k1, argmax_matmul.launches - k2) == (
+            2 * t + 2 + 3 * (t // 2), 1)
+        assert got.shape == (1, 120, 168, 3)
+        assert float(np.abs(got - want).max()) <= 1e-3
+
+
+def test_jpeg_and_inferno_round_trip():
+    """No card needed: a JPEG's frame header reads back its size, the file
+    is whole (SOI, JFIF, EOI), and the inferno table is 256 RGB entries in
+    [0, 1] whose ends are matplotlib's, indexed by matplotlib's rule."""
+    from refvsr_tpu_torch.data.jpeg import encode_jpeg, jpeg_info
+    from refvsr_tpu_torch.utils.colormap import INFERNO, inferno
+    img = np.full((36, 52, 3), (200, 120, 40), np.uint8)
+    buf = encode_jpeg(img)
+    assert jpeg_info(buf) == (36, 52, 3)
+    assert buf.count(b"\xff\xd9") >= 1 and buf[:4] == b"\xff\xd8\xff\xe0"
+    assert INFERNO.shape == (256, 3)
+    assert INFERNO.min() >= 0 and INFERNO.max() <= 1
+    np.testing.assert_allclose(INFERNO[0], [0.001462, 0.000466, 0.013866])
+    np.testing.assert_allclose(INFERNO[-1], [0.988362, 0.998364, 0.644924])
+    rgb = inferno(np.array([0.0, 0.5, 1.0, np.nan], np.float32))
+    np.testing.assert_array_equal(rgb[[0, 2]], INFERNO[[0, 255]])
+    np.testing.assert_array_equal(rgb[1], INFERNO[128])
+    assert not rgb[3].any()
