@@ -117,11 +117,32 @@ outside a checkout of the repository. Phases, each fatal on failure:
    config's batch of 8 (patch 64, T = 9, 5 steps, f32): ms per step and
    the peak; one more step with every kernel's inputs captured.
 
+17. the multi-rank paths, each on two processes sharing the card over
+   gloo (the machine has one card, and NCCL refuses two ranks on one
+   device; times are two-ranks-on-one-card times): the H-sharded 8K
+   stream (RefVSR_MFID_8K bf16, halo 32, a first and three streamed
+   windows through ``StreamRunner`` with ``parallel/serve`` functions)
+   with each rank's launches counted, ms per window, exchanges and bytes
+   handed in per window, each rank's peak, every banded K1 and K2 call of
+   its last window held against the plain versions (the ranks in turns),
+   and the gathered frames against the one-rank stream of the same net
+   and frames; after phase 10's policy, the data-parallel step
+   (RefVSR_MFID_8K f32, TF32 off, batch 1 a rank): window 0's averaged
+   gradients against one rank's on the batch of 2, the parameters equal
+   on both ranks after the update and after three timed steps, the
+   launches and peaks; after phase 15, the same eval CLI with
+   ``--spatial_devices 2`` (``run.main`` spawns the ranks), its score
+   lines against the one-rank run's; and last ``run.main(["--is_train",
+   "--devices", "2", ...])`` on RefVSR_MFID (full width, -b 2) over a
+   small seeded tree: rank 0's log tree and checkpoint, and no file opened
+   for writing by rank 1.
+
 The calls captured in phases 14 to 16 (each new shape of one streamed IR
 window and of the 8K CLI's first window; every backward call of one IR
 step) are held against the plain versions with the others. The paths'
 launches appear in ``launches_by_path`` as ``ir_eval``, ``eval_cli`` and
-``ir_train``. Phases 14 to 16 run under PyTorch's default f32 policy, as
+``ir_train``, and phase 17's as ``spatial`` and ``ddp`` (summed over the
+ranks); the banded K1 has a row of its own (``warp_sample_banded``). Phases 14 to 16 run under PyTorch's default f32 policy, as
 12 does.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line. A kernel's
@@ -813,6 +834,7 @@ def _kernel_fns():
     from refvsr_tpu_torch.ops.kernels import gather_rows as k4
     from refvsr_tpu_torch.ops.kernels import warp_sample as k1
     return {"warp_sample": k1.warp_sample,
+            "warp_sample_banded": k1.warp_sample_banded,
             "warp_sample_backward": k1.warp_sample_backward,
             "argmax_matmul": k2.argmax_matmul,
             "argmax_matmul_backward": k2.argmax_matmul_backward,
@@ -1584,8 +1606,8 @@ def write_tree(root, rng):
 def phase_loader(cfg, card):
     """ms per batch of each loader on the tree: TrainLoader, then
     MultiWorkerLoader with LOADER_WORKERS workers, its pool's start timed
-    apart from its first batch (the workers' start-up) and a second one;
-    both loaders' batches must be equal."""
+    apart from its first batch (with the workers' start-up); both loaders'
+    batches must be equal."""
     from refvsr_tpu_torch.data.datasets import TrainDataset, TrainLoader
     from refvsr_tpu_torch.data.loader import MultiWorkerLoader
     ds = TrainDataset(cfg)
@@ -1608,23 +1630,21 @@ def phase_loader(cfg, card):
         mw.start()
         start_ms = (time.perf_counter() - t0) * 1e3
         got, ms = [], []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            got.append(next(iter(mw)))
-            ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        got.append(next(iter(mw)))
+        ms.append((time.perf_counter() - t0) * 1e3)
     finally:
         mw.close()
     for b in got:
         check(all(np.array_equal(b[k], want[k]) for k in want),
               "loader: MultiWorkerLoader's batch differs from TrainLoader's")
     out = dict(train_loader_ms=single_ms, workers=LOADER_WORKERS,
-               pool_start_ms=start_ms, first_batch_ms=ms[0],
-               warm_batch_ms=ms[1])
+               pool_start_ms=start_ms, first_batch_ms=ms[0])
     log(f"loader (batch {cfg.batch_size}, {t} frames x 6 streams of "
         f"{H}x{W} PNG a sample): TrainLoader {single_ms:.1f} ms/batch; "
         f"MultiWorkerLoader ({LOADER_WORKERS} workers) pool start "
         f"{start_ms:.1f} ms, first batch {ms[0]:.1f} ms (with the workers' "
-        f"start-up), next {ms[1]:.1f} ms; batches equal  [{card}]")
+        f"start-up); batches equal  [{card}]")
     return out
 
 
@@ -2376,6 +2396,35 @@ def phase_ir_eval(dev, card):
     return launches, summary, calls
 
 
+# the spatial eval CLI's score lines against the one-rank CLI's (f32,
+# PyTorch's default TF32 convolutions, whose algorithms cuDNN picks by the
+# band's shape): PSNR in dB and SSIM. On the H100 the sound run gave
+# 1.5e-4 dB and 0 (three runs alike), the control with no halo (every
+# warp wrong at its band's edge rows) 4.6e-4 dB and 0: the PSNR limit is
+# their geometric mean, the SSIM limit one unit of the score lines' last
+# digit. The random weights' SR is far from the truth, so a seam fault
+# moves the PSNR little
+EVAL_SPATIAL_PSNR_LIMIT, EVAL_SPATIAL_SSIM_LIMIT = 2.6e-4, 1e-5
+
+
+def _score_diff(want, got):
+    """The largest PSNR and SSIM differences between two score files'
+    lines, which must otherwise agree (seconds aside)."""
+    import re
+    num = re.compile(r"(PSNR|SSIM): (-?\d+\.\d+)")
+    sec = re.compile(r"\(\d+\.\d+sec\)")
+    check(len(want) == len(got), f"score files of {len(want)} and "
+          f"{len(got)} lines")
+    out = {"psnr": 0.0, "ssim": 0.0}
+    for a, b in zip(want, got):
+        check(num.sub("#", sec.sub("", a)) == num.sub("#", sec.sub("", b)),
+              f"score lines differ: {a!r} {b!r}")
+        for (k, va), (_, vb) in zip(num.findall(a), num.findall(b)):
+            key = k.lower()
+            out[key] = max(out[key], abs(float(va) - float(vb)))
+    return out
+
+
 def phase_eval_cli_8k(dev, card):
     """The eval CLI on RefVSR_MFID_8K (30 blocks, 48 channels, f32, HD
     input, seeded random weights): quan_qual with --quantitative_only on a
@@ -2424,8 +2473,37 @@ def phase_eval_cli_8k(dev, card):
         peak = torch.cuda.max_memory_allocated()
         lines = _score_lines(_result_dir(f"{root}/out", "quan_qual"),
                              "quan_qual")
+        # the same CLI with the frame's rows split over two gloo ranks on
+        # the card (run.main spawns them)
+        torch.cuda.empty_cache()
+        at = argv.index("--output_offset") + 1
+
+        def spatial_cli(out, halo):
+            res_ = run.main(argv[:at] + [f"{root}/{out}"] + argv[at + 1:]
+                            + ["--spatial_devices", "2", "--spatial_halo",
+                               str(halo)])
+            return res_, _score_lines(_result_dir(f"{root}/{out}",
+                                                  "quan_qual"), "quan_qual")
+        t0 = time.perf_counter()
+        res_s, lines_s = spatial_cli("out_spatial", SPATIAL_HALO)
+        secs_s = time.perf_counter() - t0
+        # the control the limits must reject: no halo, so that each
+        # warp's taps past its band's edge rows read the wrong rows
+        _, lines_c = spatial_cli("out_control", 0)
     check(res["frames"] == EVAL_8K_FRAMES and np.isfinite(res["PSNR"]),
           f"8K eval summary {res}")
+    spatial_diff = _score_diff(lines, lines_s)
+    control_diff = _score_diff(lines, lines_c)
+    log(f"8K eval control (--spatial_halo 0) against one rank: "
+        f"{control_diff}")
+    check(control_diff["psnr"] > EVAL_SPATIAL_PSNR_LIMIT
+          or control_diff["ssim"] > EVAL_SPATIAL_SSIM_LIMIT,
+          f"spatial eval CLI control (no halo) passes the limits: "
+          f"{control_diff}")
+    check(res_s is not None and res_s["frames"] == EVAL_8K_FRAMES
+          and spatial_diff["psnr"] <= EVAL_SPATIAL_PSNR_LIMIT
+          and spatial_diff["ssim"] <= EVAL_SPATIAL_SSIM_LIMIT,
+          f"spatial eval CLI against one rank: {spatial_diff}, {res_s}")
     check(sum(ln.startswith("[EVAL ") for ln in lines) == EVAL_8K_FRAMES
           and lines[-1].startswith("[TOTAL random_init|RealMCVSR] "),
           f"8K score file {lines}")
@@ -2434,7 +2512,14 @@ def phase_eval_cli_8k(dev, card):
     check(got == want, f"8K eval K1/K2 launches {got} != {want}")
     summary = dict(card=card, tree_write_s=tree_s, run_main_s=secs,
                    peak_bytes=peak, psnr=res["PSNR"], ssim=res["SSIM"],
-                   sec_per_frame=res["sec_per_frame"], launches=launches)
+                   sec_per_frame=res["sec_per_frame"], launches=launches,
+                   spatial=dict(ranks=2, run_main_s=secs_s,
+                                sec_per_frame=res_s["sec_per_frame"],
+                                against_one_rank=spatial_diff,
+                                control_against_one_rank=control_diff))
+    log(f"8K eval via run.main --spatial_devices 2 (2 gloo ranks on one "
+        f"card): {secs_s:.1f} s with the spawn; score lines against one "
+        f"rank's: {spatial_diff}  [{card}]")
     log(f"8K eval via run.main (RefVSR_MFID_8K f32, {EVAL_8K_FRAMES} "
         f"windows, quantitative only, metrics on the card's 1/4 "
         f"downscale): {secs:.1f} s (tree {tree_s:.1f} s); PSNR "
@@ -2528,6 +2613,603 @@ def phase_ir_train(dev, card):
     return launches, summary, calls
 
 
+# ------------------------------------------------ multi-rank paths (gloo)
+#
+# The card's machine has one H100, and NCCL refuses two ranks on one
+# device, so each multi-rank path runs as two spawned processes sharing
+# cuda:0 over gloo. Their times are two-ranks-on-one-card times, not
+# two-card times. Each rank counts its own launches; a path's count is the
+# sum over its ranks.
+
+SPATIAL_RANKS = 2
+SPATIAL_HALO = 32
+# the spatial stream's frames against the one-rank stream's (bf16): cuDNN
+# picks its algorithms by shape, and a band of rows is another shape, so
+# bit equality is not expected; the envelope is the pipelined stream's
+SPATIAL_MEAN_LIMIT, SPATIAL_MAX_LIMIT = PIPE_MEAN_LIMIT, PIPE_MAX_LIMIT
+# the averaged gradients of two ranks (batch 1 each) against one rank's on
+# the batch of 2, f32 with TF32 off: relative L2 per tensor, median and
+# max. The sums run in other orders (cuDNN's algorithms by batch size, the
+# backward kernels' atomics), and the MFID term amplifies that: its
+# per-position argmax over contextual similarities (losses/contextual.py)
+# moves with the last bits. On the H100 the config's loss gave median
+# 6.921e-4 to 6.922e-4 and max 2.9598e-2 to 2.9602e-2 in six runs (the
+# alignment convs' biases), the L1_lf term alone median 3.2e-5 and max
+# 1.2e-3, with the matching's index maps equal (`phase_ddp(loss=...)`).
+# Each limit is the geometric mean of that reading and the one of the
+# control that must fail it, the step without sync_batch_stats (median
+# 1.19e-3, max 3.90e-2); a rank's own half-batch gradients give median
+# 0.11. The CPU tests hold the same step to 1e-5, and the all-reduce
+# itself is held bit for bit below
+DDP_GRAD_MEDIAN_LIMIT, DDP_GRAD_MAX_LIMIT = 9e-4, 3.4e-2
+DDP_STEPS = 3
+# the train CLI on two ranks: RefVSR_MFID at full width on a small tree of
+# 270x480 LRx4 frames (540x960 LRx2 refs, 1080x1920 HR ground truth; only
+# the files the non-HD splits read), one clip of 18 frames (two samples,
+# one every frame_itr_num = 9 frames) and 3 validation frames
+DDP_TREE_HW = (1080, 1920)
+DDP_TREE_FRAMES = {"train": 18, "valid": 3}
+RANK_TIMEOUT_S = 600
+
+
+def _in_turns(fn, dev):
+    """fn() on each rank in turn (the others wait at a barrier), so that a
+    kernel timed on one rank does not share the card with the other's
+    work. Returns fn()'s value on this rank."""
+    from refvsr_tpu_torch.parallel import mesh
+    out = None
+    for r in range(mesh.world_size()):
+        if mesh.rank() == r:
+            out = fn()
+            torch.cuda.synchronize()
+        mesh.barrier(dev)
+    return out
+
+
+def k1_banded_case(name, x, flow, h, out_h, out_row0, in_row0, lo, hi):
+    """The banded K1 kernel vs its plain version on one captured call."""
+    import torch.nn.functional as F
+
+    from refvsr_tpu_torch.ops.kernels.warp_sample import (
+        warp_coords, warp_sample_banded, warp_sample_banded_plain)
+    args = (x, flow, h, out_h, out_row0, in_row0, lo, hi)
+    got = warp_sample_banded(*args)
+    want = warp_sample_banded_plain(*args)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == x.dtype,
+          f"K1 banded {name}: shape/dtype {tuple(got.shape)} {got.dtype}")
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2.0 ** -6 if x.dtype == torch.bfloat16 else 1e-5
+    limit = tol * float(x.float().abs().max())
+    check(err <= limit,
+          f"K1 banded {name}: max |kernel - plain| {err} > {limit}")
+    # the library yardstick: grid_sample over the band on the same
+    # coordinates (it has no border-extension past the band)
+    hb, w = x.shape[1], x.shape[2]
+    sx, sy = warp_coords((h, w), flow, out_h, out_row0)
+    grid = torch.stack([(2 * sx + 1) / w - 1,
+                        (2 * (sy - in_row0) + 1) / hb - 1],
+                       -1).nan_to_num(nan=-4.0).to(x.dtype)
+    nchw = x.permute(0, 3, 1, 2)
+    ms = cuda_ms(lambda: warp_sample_banded(*args))
+    plain_ms = cuda_ms(lambda: warp_sample_banded_plain(*args), iters=3)
+    library_ms = cuda_ms(lambda: F.grid_sample(
+        nchw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=False))
+    nbytes = _nbytes(x, flow, got)
+    flops = 8 * got.numel()
+    b_ms, b_by = bound_ms(nbytes, flops, x.dtype)
+    log(f"K1 banded {name}: x {tuple(x.shape)} {x.dtype} rows from "
+        f"{in_row0} -> {tuple(got.shape)} rows from {out_row0} of "
+        f"{out_h}; max_abs_err {err:.3e} (limit {limit:.3e}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(case=name, max_abs_err=err, tolerance=limit, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, nbytes=nbytes, flops=flops, peak=x.dtype)
+
+
+def _spatial_rank(frames_path, ref_path, windows, kind="cuda"):
+    """One rank of the spatial stream: RefVSR_MFID_8K bf16, first + the
+    streamed windows through StreamRunner on its rows, the launches
+    counted, the last window's banded K1 and K2 calls captured and held
+    against their plain versions (in turns); rank 0 holds the gathered
+    frames against the one-rank frames."""
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.models import matching as matching_mod
+    from refvsr_tpu_torch.models.refvsr import build_refvsr
+    from refvsr_tpu_torch.ops.kernels import warp_sample as k1_mod
+    from refvsr_tpu_torch.parallel import mesh
+    from refvsr_tpu_torch.parallel.serve import spatial_eval_fns
+
+    backend = mesh.init_from_env(kind)
+    try:
+        dev = mesh.device_for_rank(kind)
+        rank = mesh.rank()
+        data = np.load(frames_path)
+        lrs, refs = data["lrs"], data["refs"]
+        cfg = get_config("RefVSR_MFID_8K")
+        net = build_refvsr(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+        fns = spatial_eval_fns(net, SPATIAL_HALO, (N, T, H, W, 3),
+                               (N, T, H, W, 3), torch.bfloat16, dev)
+        runner = StreamRunner(net, cfg.reset_branch, device=dev,
+                              compute_dtype=torch.bfloat16, spatial=fns)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        ms, outs = [], []
+        calls = {"warp_sample_banded": [], "argmax_matmul": []}
+        for wi in range(windows):
+            ex0, by0 = fns.exchanges, fns.bytes_moved
+            last = wi == windows - 1
+            with contextlib.ExitStack() as stack:
+                if last:
+                    stack.enter_context(capturing(
+                        k1_mod, "warp_sample_banded",
+                        calls["warp_sample_banded"]))
+                    stack.enter_context(capturing(
+                        matching_mod, "argmax_matmul",
+                        calls["argmax_matmul"]))
+                mesh.barrier(dev)
+                t0 = time.perf_counter()
+                out, _ = runner.process_device(lrs[:, wi:wi + T],
+                                               refs[:, wi:wi + T],
+                                               is_first=wi == 0)
+                torch.cuda.synchronize()
+                ms.append(dict(kind="forward_first" if wi == 0 else
+                               "forward_stream",
+                               ms=(time.perf_counter() - t0) * 1e3,
+                               exchanges=fns.exchanges - ex0,
+                               bytes=fns.bytes_moved - by0))
+            if rank == 0:
+                outs.append(out.cpu())
+            del out
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        del runner, fns, net
+        torch.cuda.empty_cache()
+
+        def held():
+            cases = {"warp_sample_banded": [], "argmax_matmul": []}
+            for i, (a, _) in enumerate(calls["warp_sample_banded"]):
+                cases["warp_sample_banded"].append(k1_banded_case(
+                    f"rank {rank} call {i}", *a))
+            for i, (a, _) in enumerate(calls["argmax_matmul"]):
+                cases["argmax_matmul"].append(k2_case(
+                    f"spatial rank {rank} call {i}: {_shape(a[0])}, "
+                    f"{_shape(a[1])}", *a, iters=2, plain_iters=1))
+            return cases
+        cases = _in_turns(held, dev)
+        res = dict(rank=rank, backend=backend, windows=ms, peak_bytes=peak,
+                   launches=launches, cases=cases,
+                   n_calls={k: len(v) for k, v in calls.items()})
+        gathered = [None] * mesh.world_size()
+        import torch.distributed as dist
+        dist.all_gather_object(gathered, res)
+        if rank != 0:
+            return None
+        want = torch.load(ref_path)
+        diffs = []
+        for got, w in zip(outs, want):
+            check(tuple(got.shape) == (N, 4 * H, 4 * W, 3) and _finite(got),
+                  f"spatial frame {tuple(got.shape)}")
+            d = (got.float() - w.float()).abs()
+            diffs.append(dict(bit_equal=bool(torch.equal(got, w)),
+                              mean=float(d.mean()), max=float(d.max())))
+        return dict(ranks=gathered, frames=diffs)
+    finally:
+        mesh.destroy()
+
+
+def phase_spatial(dev, card):
+    """The H-sharded 8K stream on two gloo ranks sharing the card, against
+    the one-rank stream of the same seeded net and frames."""
+    import tempfile
+
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.models.refvsr import build_refvsr
+    from refvsr_tpu_torch.parallel import mesh
+
+    windows = 1 + STREAM_WINDOWS
+    rng = np.random.default_rng(23)
+    frames = T + windows - 1
+    lrs = rng.random((N, frames, H, W, 3), dtype=np.float32)
+    refs = rng.random((N, frames, H, W, 3), dtype=np.float32)
+    cfg = get_config("RefVSR_MFID_8K")
+    net = build_refvsr(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    runner = StreamRunner(net, cfg.reset_branch, device=dev,
+                          compute_dtype=torch.bfloat16)
+    want, one_ms = [], []
+    for wi in range(windows):
+        t0 = time.perf_counter()
+        out, _ = runner.process_device(lrs[:, wi:wi + T], refs[:, wi:wi + T],
+                                       is_first=wi == 0)
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        want.append(out.cpu())
+    del runner, net, out
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/frames.npz", lrs=lrs, refs=refs)
+        torch.save(want, f"{tmp}/want.pt")
+        del want
+        t0 = time.perf_counter()
+        res = mesh.spawn(_spatial_rank, (f"{tmp}/frames.npz",
+                                         f"{tmp}/want.pt", windows),
+                         SPATIAL_RANKS, RANK_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    ranks = res["ranks"]
+    for r in ranks:
+        check(r["backend"] == "gloo", f"spatial backend {r['backend']}")
+        check(r["launches"]["warp_sample_banded"] > 0
+              and r["launches"]["argmax_matmul"] > 0,
+              f"spatial rank {r['rank']}: launches {r['launches']}")
+        check(r["launches"]["warp_sample"] == 0,
+              f"spatial rank {r['rank']} launched the unbanded K1")
+        check(r["n_calls"] == {"warp_sample_banded": 10, "argmax_matmul": 1},
+              f"spatial rank {r['rank']}: captured {r['n_calls']}")
+    for i, f in enumerate(res["frames"]):
+        check(f["bit_equal"] or (f["mean"] <= SPATIAL_MEAN_LIMIT
+                                 and f["max"] <= SPATIAL_MAX_LIMIT),
+              f"spatial frame {i} against the one-rank frame: {f}")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    stream_ms = [sum(r["windows"][i]["ms"] for r in ranks[:1])
+                 for i in range(1, windows)]
+    summary = dict(
+        card=card, ranks=SPATIAL_RANKS, halo=SPATIAL_HALO,
+        backend=ranks[0]["backend"], spawn_and_run_s=wall,
+        one_rank_ms=one_ms, frames=res["frames"],
+        per_rank=[dict(rank=r["rank"], windows=r["windows"],
+                       peak_bytes=r["peak_bytes"],
+                       launches=r["launches"]) for r in ranks])
+    for r in ranks:
+        w = r["windows"]
+        log(f"spatial rank {r['rank']}: " + ", ".join(
+            f"{x['kind'][8:]} {x['ms']:.1f} ms ({x['exchanges']} "
+            f"exchanges, {x['bytes'] / 2**20:.1f} MiB handed in)"
+            for x in w) + f"; peak allocated "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"spatial stream (RefVSR_MFID_8K bf16, {SPATIAL_RANKS} gloo ranks "
+        f"on one card, halo {SPATIAL_HALO}): forward_stream "
+        f"{sum(stream_ms) / len(stream_ms):.1f} ms/window on rank 0 "
+        f"(two ranks on one card) against {np.mean(one_ms[1:]):.1f} ms one "
+        f"rank; frames vs one rank {res['frames']}; launches {launches}; "
+        f"{wall:.1f} s with the spawn  [{card}]")
+    cases = {k: [c for r in ranks for c in r["cases"][k]]
+             for k in ("warp_sample_banded", "argmax_matmul")}
+    rank0 = ranks[0]["cases"]["warp_sample_banded"]
+    return launches, summary, cases, rank0
+
+
+@contextlib.contextmanager
+def _recording_indices(out):
+    """Keep the index maps the matching's K2 calls return, on the host."""
+    from refvsr_tpu_torch.models import matching as matching_mod
+    real = matching_mod.argmax_matmul
+
+    def rec(*a, **k):
+        conf, index = real(*a, **k)
+        out.append(index.detach().cpu())
+        return conf, index
+    matching_mod.argmax_matmul = rec
+    try:
+        yield
+    finally:
+        matching_mod.argmax_matmul = real
+
+
+def _grad_rel_l2(names, grads, want, dev):
+    """Relative L2 of each gradient against `want`'s: median, p99, max,
+    the worst tensors and the count."""
+    rel = {}
+    for name, g, gw in zip(names, grads, want):
+        if g is None or gw is None:
+            check(g is None and gw is None, "None gradients differ")
+            continue
+        gw = gw.to(dev)
+        norm = float(torch.linalg.vector_norm(gw))
+        if norm > 0:
+            rel[name] = float(torch.linalg.vector_norm(g - gw)) / norm
+    vals = np.asarray(list(rel.values()))
+    return dict(grad_rel_l2_max=float(vals.max()),
+                grad_rel_l2_median=float(np.median(vals)),
+                grad_rel_l2_p99=float(np.quantile(vals, 0.99)),
+                grad_rel_l2_worst=sorted(rel.items(),
+                                         key=lambda kv: -kv[1])[:8],
+                grad_tensors=len(vals))
+
+
+def _ddp_rank(batch_path, want_path, steps, kind="cuda", loss=None):
+    """One rank of the data-parallel step: RefVSR_MFID_8K f32 (TF32 off)
+    on its half of the batch: window 0's averaged gradients against the
+    one-rank batch-2 gradients (rank 0), the parameters after the update
+    compared across ranks, then `steps` timed steps."""
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.models.refvsr import init_stream_state
+    from refvsr_tpu_torch.parallel import mesh
+    from refvsr_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = mesh.init_from_env(kind)
+    try:
+        dev = mesh.device_for_rank(kind)
+        rank, world = mesh.rank(), mesh.world_size()
+        cfg = get_config("RefVSR_MFID_8K", batch_size=TRAIN_BATCH,
+                         **NO_ASSETS, **({} if loss is None else
+                                         {"loss": loss}))
+        data = np.load(batch_path)
+        per = TRAIN_BATCH // world
+        batch = {k: data[k][rank * per:(rank + 1) * per] for k in data}
+        tr = Trainer(cfg, device=dev, seed=0)
+        lr, ref, hr, hr_ref = (torch.as_tensor(batch[k]).to(dev) for k in (
+            "LR_UW", "LR_REF_W", "HR_UW", "HR_REF_T"))
+        n, _, h, w = lr.shape[:4]
+        state = init_stream_state(n, h, w, cfg.mid_channels, num_frames=T,
+                                  device=dev)
+        # the control the limits must reject besides a rank's own
+        # gradients: window 0 averaged with the contextual loss's batch
+        # mean taken per rank (Trainer.gradients without sync_batch_stats)
+        out_c, _ = tr.net.forward_train(lr[:, :T], ref[:, :T], state)
+        errs_c = tr.loss_mod(out_c.float(), hr[:, T // 2], hr_ref[:, :T])
+        no_sync, _ = tr.average(torch.autograd.grad(
+            errs_c["total"], tr.params, allow_unused=True), errs_c)
+        del out_c, errs_c
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        index = []
+        with _recording_indices(index):
+            errs, _, state, grads = tr.gradients(
+                state, lr[:, :T], ref[:, :T], hr[:, T // 2], hr_ref[:, :T])
+        local = [None if g is None else g.clone() for g in grads]
+        grads, errs = tr.average(grads, errs)
+        want = torch.load(want_path)
+        mine = want["index"][rank * T * per:(rank + 1) * T * per]
+        res = dict(rank=rank, backend=backend,
+                   index_flips=int((index[0] != mine).sum()),
+                   index_entries=int(mine.numel()))
+        # the all-reduce against the ranks' own gradients, gathered: the
+        # mean of two f32 tensors, which gloo sums on the host, bit for bit
+        flat = torch.cat([g.reshape(-1) for g in local if g is not None])
+        both = mesh.all_gather_rows(flat[None], 0)
+        mean = (both[0] + both[1]) / 2
+        avg = torch.cat([g.reshape(-1) for g in grads if g is not None])
+        res["allreduce_max_abs_diff"] = float((avg - mean).abs().max())
+        if rank == 0:
+            names = [k for k, p in tr.net.named_parameters()
+                     if p.requires_grad]
+            res.update(_grad_rel_l2(names, grads, want["grads"], dev))
+            res["controls"] = {
+                label: {k: v for k, v in _grad_rel_l2(
+                    names, got, want["grads"], dev).items()
+                    if k != "grad_rel_l2_worst"}
+                for label, got in (("own half-batch", local),
+                                   ("no sync_batch_stats", no_sync))}
+            res["errs"] = {k: float(v) for k, v in errs.items()}
+            res["errs_one_rank"] = want["errs"]
+        tr.opt.update(grads)
+        flat = torch.cat([p.detach().reshape(-1) for p in tr.params])
+        ref0 = flat.clone()
+        mesh.broadcast_([ref0])
+        res["params_equal_rank0"] = bool(torch.equal(flat, ref0))
+        step_ms = []
+        for i in range(1, steps + 1):
+            mesh.barrier(dev)
+            t0 = time.perf_counter()
+            _, state = tr.train_step(state, lr[:, i:i + T], ref[:, i:i + T],
+                                     hr[:, i + T // 2], hr_ref[:, :i + T])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        flat = torch.cat([p.detach().reshape(-1) for p in tr.params])
+        ref0 = flat.clone()
+        mesh.broadcast_([ref0])
+        res["params_equal_rank0_after_steps"] = bool(torch.equal(flat, ref0))
+        res.update(step_ms=step_ms, launches=read_launches(),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        import torch.distributed as dist
+        gathered = [None] * world
+        dist.all_gather_object(gathered, res)
+        return gathered if rank == 0 else None
+    finally:
+        mesh.destroy()
+
+
+def phase_ddp(dev, card, loss=None):
+    """The data-parallel training step on two gloo ranks sharing the card
+    (RefVSR_MFID_8K at full width, f32 with TF32 off, per-rank batch 1)
+    against one rank's step on the batch of 2."""
+    import tempfile
+
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.models.refvsr import init_stream_state
+    from refvsr_tpu_torch.parallel import mesh
+    from refvsr_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("RefVSR_MFID_8K", batch_size=TRAIN_BATCH, **NO_ASSETS,
+                     **({} if loss is None else {"loss": loss}))
+    batch = synthetic_batch(cfg, seed=13)
+    with cudnn_tf32(False):
+        tr = Trainer(cfg, device=dev, seed=0)
+        lr, ref, hr, hr_ref = (torch.as_tensor(batch[k]).to(dev) for k in (
+            "LR_UW", "LR_REF_W", "HR_UW", "HR_REF_T"))
+        n, _, h, w = lr.shape[:4]
+        state = init_stream_state(n, h, w, cfg.mid_channels, num_frames=T,
+                                  device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = []
+        with _recording_indices(index):
+            errs, _, _, grads = tr.gradients(state, lr[:, :T], ref[:, :T],
+                                             hr[:, T // 2], hr_ref[:, :T])
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        want = dict(grads=[None if g is None else g.cpu() for g in grads],
+                    errs={k: float(v.detach()) for k, v in errs.items()},
+                    index=index[0])
+    del tr, lr, ref, hr, hr_ref, state, grads, errs
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/batch.npz", **{k: np.asarray(v) for k, v in
+                                         batch.items()})
+        torch.save(want, f"{tmp}/want.pt")
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(_ddp_rank, (f"{tmp}/batch.npz", f"{tmp}/want.pt",
+                                       DDP_STEPS, "cuda", loss), 2,
+                           RANK_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    flips = [(r["index_flips"], r["index_entries"]) for r in ranks]
+    log(f"DDP window 0: the matching's index maps against one rank's batch "
+        f"of 2, entries that differ (rank 0, rank 1): {flips}")
+    log(f"DDP window-0 gradients against one rank's batch of 2: "
+        f"{r0['grad_tensors']} tensors, relative L2 median "
+        f"{r0['grad_rel_l2_median']:.3e}, p99 {r0['grad_rel_l2_p99']:.3e}, "
+        f"max {r0['grad_rel_l2_max']:.3e}; worst {r0['grad_rel_l2_worst']}")
+    check(r0["grad_rel_l2_median"] <= DDP_GRAD_MEDIAN_LIMIT
+          and r0["grad_rel_l2_max"] <= DDP_GRAD_MAX_LIMIT,
+          f"DDP averaged gradients: relative L2 median "
+          f"{r0['grad_rel_l2_median']} (limit {DDP_GRAD_MEDIAN_LIMIT}), "
+          f"max {r0['grad_rel_l2_max']} (limit {DDP_GRAD_MAX_LIMIT})")
+    for label, c in r0["controls"].items():
+        log(f"DDP control ({label}) against one rank's batch of 2: "
+            f"relative L2 median {c['grad_rel_l2_median']:.3e}, p99 "
+            f"{c['grad_rel_l2_p99']:.3e}, max {c['grad_rel_l2_max']:.3e}")
+        check(c["grad_rel_l2_median"] > DDP_GRAD_MEDIAN_LIMIT
+              or c["grad_rel_l2_max"] > DDP_GRAD_MAX_LIMIT,
+              f"DDP control ({label}) passes the limits: {c}")
+    for r in ranks:
+        check(r["allreduce_max_abs_diff"] == 0.0,
+              f"DDP rank {r['rank']}: the averaged gradients differ from "
+              f"the mean of the ranks' own by {r['allreduce_max_abs_diff']}")
+        check(r["backend"] == "gloo", f"DDP backend {r['backend']}")
+        check(r["params_equal_rank0"] and r["params_equal_rank0_after_steps"],
+              f"DDP rank {r['rank']}: parameters differ from rank 0's")
+        for k in KERNEL_FNS:
+            check(r["launches"][k] > 0,
+                  f"DDP rank {r['rank']}: {k} launched no time")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    summary = dict(card=card, ranks=2, backend=r0["backend"],
+                   one_rank_window0_gradients_ms=one_ms,
+                   grad_rel_l2_max=r0["grad_rel_l2_max"],
+                   grad_rel_l2_median=r0["grad_rel_l2_median"],
+                   grad_rel_l2_p99=r0["grad_rel_l2_p99"],
+                   grad_rel_l2_worst=r0["grad_rel_l2_worst"],
+                   controls=r0["controls"], index_flips=flips,
+                   errs=r0["errs"], errs_one_rank=r0["errs_one_rank"],
+                   spawn_and_run_s=wall,
+                   per_rank=[dict(rank=r["rank"], step_ms=r["step_ms"],
+                                  peak_bytes=r["peak_bytes"])
+                             for r in ranks])
+    for r in ranks:
+        log(f"DDP rank {r['rank']}: steps {[round(x, 1) for x in r['step_ms']]}"
+            f" ms; peak allocated {r['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"DDP step (RefVSR_MFID_8K f32, TF32 off, 2 gloo ranks on one "
+        f"card, batch 1 each): {np.mean(r0['step_ms']):.1f} ms/step on rank "
+        f"0 (two ranks on one card); window-0 gradients vs one rank's "
+        f"batch of 2: max rel L2 {r0['grad_rel_l2_max']:.3e} (median "
+        f"{r0['grad_rel_l2_median']:.3e}); the all-reduce bit-equal to the "
+        f"mean of the ranks' own; errors "
+        f"{r0['errs']} vs {r0['errs_one_rank']}; launches {launches}; "
+        f"{wall:.1f} s with the spawn  [{card}]")
+    return launches, summary
+
+
+def _train_cli_rank(argv, writes_file):
+    """A rank of the spawned train CLI; rank 1 records every file it opens
+    for writing."""
+    import builtins
+    import os as os_
+    from refvsr_tpu_torch import run
+    opened = []
+    spy = os_.environ.get("RANK") == "1"
+    real_open = builtins.open
+    if spy:
+        def spying(file, mode="r", *a, **k):
+            if any(c in mode for c in "wax+"):
+                opened.append(str(file))
+            return real_open(file, mode, *a, **k)
+        builtins.open = spying
+    try:
+        run.main(argv)
+    finally:
+        builtins.open = real_open
+    if spy:
+        with open(writes_file, "w") as f:
+            json.dump(opened, f)
+
+
+def phase_train_cli_ddp(card):
+    """run.main --is_train --devices 2 (RefVSR_MFID at full width, -b 2,
+    so batch 1 a rank) on a small seeded tree: rank 0's log tree and
+    checkpoint, and no file written by rank 1."""
+    import tempfile
+
+    from refvsr_tpu_torch import run
+    from refvsr_tpu_torch.data.png import write_image
+    from refvsr_tpu_torch.parallel import mesh
+    h, w = DDP_TREE_HW
+    rng = np.random.default_rng(29)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        for split, n in DDP_TREE_FRAMES.items():
+            for cam in ("UW", "W", "T"):
+                subs = [("LRx4", 4)] + ([("HR", 1)] if cam == "UW" else [])
+                subs += [("LRx2", 2)] if cam == "W" else []
+                for i in range(n):
+                    img = _scene(rng, h, w)
+                    for sub, f in subs:
+                        write_image(f"{root}/RealMCVSR/{split}/{sub}/{cam}/"
+                                    f"0000/{i:04d}.png", img[::f, ::f])
+        tree_s = time.perf_counter() - t0
+        writes = f"{root}/rank1_writes.json"
+        argv = ["--is_train", "--config", "config_RefVSR_MFID", "--mode",
+                "chip_smoke_ddp", "-b", "2", "-th", "0", "--data_offset",
+                root, "--log_offset", f"{root}/logs", "--total_itr", "4",
+                "--devices", "2"]
+        real_spawn = mesh.spawn
+
+        def spawn(fn, args, world, timeout_s=None):
+            return real_spawn(_train_cli_rank, (args[0], writes), world,
+                              RANK_TIMEOUT_S)
+        mesh.spawn = spawn
+        t0 = time.perf_counter()
+        try:
+            out = run.main(argv)
+        finally:
+            mesh.spawn = real_spawn
+        secs = time.perf_counter() - t0
+        log_dir = f"{root}/logs/RefVSR_TPU/chip_smoke_ddp"
+        files = sorted(os.path.relpath(os.path.join(d, f), log_dir)
+                       for d, _, fs in os.walk(log_dir) for f in fs)
+        with open(writes) as f:
+            rank1 = json.load(f)
+        ckpt = [f for f in files if f.startswith("checkpoint/")
+                and not f.endswith("checkpoints.txt")]
+        with open(f"{log_dir}/checkpoint/train/epoch/checkpoints.txt") as f:
+            ck_lines = f.read().splitlines()
+    check(out is None, f"train CLI parent returned {out!r}")
+    for need in ("config/config.json", "cost.txt",
+                 "checkpoint/train/epoch/checkpoints.txt"):
+        check(need in files, f"train CLI log tree lacks {need}: {files}")
+    check(any(f.startswith("log/train/scalar/events") for f in files),
+          f"train CLI log tree has no event file: {files}")
+    check(len(ckpt) >= 1 and len(ck_lines) == 2,
+          f"train CLI checkpoints {ckpt}, {ck_lines}")
+    check(rank1 == [], f"rank 1 wrote {rank1}")
+    summary = dict(card=card, tree_write_s=tree_s, run_main_s=secs,
+                   files=files, rank1_writes=rank1)
+    log(f"train CLI --devices 2 (RefVSR_MFID full width, -b 2, 2 gloo "
+        f"ranks on one card, LRx4 {h // 4}x{w // 4} tree): {secs:.1f} s (tree "
+        f"{tree_s:.1f} s); rank 0 wrote {len(files)} files, checkpoint "
+        f"{ckpt}; rank 1 wrote none  [{card}]")
+    return summary
+
+
 def _shape(t):
     return "x".join(str(v) for v in t.shape)
 
@@ -2595,6 +3277,15 @@ KERNEL_META = {
               "(torch.profiler); plain_ms, library_ms (F.grid_sample) and "
               "bound_ms are for the inputs the path gave it in the next "
               "forward_stream window, summed over its launches"),
+    "warp_sample_banded": dict(
+        id="K1-banded", source="refvsr_tpu_torch/csrc/warp_sample.cu",
+        replaces="refvsr_tpu/ops/pallas/warp_select.py:293",
+        tolerance="2**-6 * max|x| (bf16), 1e-5 * max|x| (f32)",
+        ms_is="CUDA-event time of each of rank 0's launches in one "
+              "forward_stream window of the spatial stream (two gloo ranks "
+              "on one card), each timed alone while the other rank waits, "
+              "summed; plain_ms, library_ms (F.grid_sample over the band) "
+              "and bound_ms for the same calls"),
     "warp_sample_backward": dict(
         id="K1-bwd", source="refvsr_tpu_torch/csrc/warp_sample.cu",
         replaces="refvsr_tpu/ops/pallas/warp_select.py:363",
@@ -2645,14 +3336,28 @@ def _case(c):
         "nbytes", "flops", "peak", "kernels_bias", "kernels_nobias")}
 
 
-def kernels_line(synthetic, on_path, in_path, in_step, launches, bench):
+def kernels_line(synthetic, on_path, in_path, in_step, launches, bench,
+                 banded):
     kernels = []
     for name, m in KERNEL_META.items():
-        by_path = {p: launches[p][name] for p in launches}
+        by_path = {p: launches[p].get(name, 0) for p in launches}
         entry = dict(name=name, id=m["id"], route="cuda", source=m["source"],
                      replaces=m["replaces"], launches=sum(by_path.values()),
                      launches_by_path=by_path, tolerance=m["tolerance"],
                      ms_is=m["ms_is"])
+        if name == "warp_sample_banded":
+            counted, cases = banded
+            b_ms, b_by = bound_ms(sum(c["nbytes"] for c in counted),
+                                  sum(c["flops"] for c in counted),
+                                  counted[0]["peak"])
+            kernels.append(dict(
+                entry, max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=sum(c["ms"] for c in counted),
+                plain_ms=sum(c["plain_ms"] for c in counted),
+                library_ms=sum(c["library_ms"] for c in counted),
+                bound_ms=b_ms, bound_by=b_by,
+                cases=[_case(c) for c in cases]))
+            continue
         if name in bench:
             main, cases = bench[name]
             b_ms, b_by = bound_ms(main["nbytes"], main["flops"],
@@ -2721,6 +3426,16 @@ def main():
         phase_main_path(dev, card)
     launches["serving"], serving, serve_calls = phase_serving(dev, card)
     launches["pipelined"], pipelined, pipe_calls = phase_pipelined(dev, card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches["spatial"], spatial, spatial_cases, banded_counted = \
+        phase_spatial(dev, card)
+    spatial["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches["ddp"], ddp = phase_ddp(dev, card)
+    ddp["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     with cudnn_tf32(True):
         launches["train"], train, in_step, train_calls = phase_training(
             dev, card)
@@ -2744,6 +3459,10 @@ def main():
             dev, card)
         to_host(ir_train_calls)
         log(f"IR and eval CLI phases: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        train_cli = phase_train_cli_ddp(card)
+        train_cli["phase_s"] = time.perf_counter() - t0
     launches["train_amp"] = entry["amp"]["launches"]
     on_path = path_cases(stream_calls, first_calls, train_calls,
                          {"predict": serve_calls,
@@ -2754,13 +3473,16 @@ def main():
                           "IR eval window (forward_stream)": ir_calls,
                           "8K eval CLI (forward_first)": cli_calls,
                           "IR train step": ir_train_calls})
+    on_path["argmax_matmul"][1].extend(spatial_cases["argmax_matmul"])
     kernels = kernels_line(synthetic, on_path, in_path, in_step, launches,
-                           bench)
+                           bench, (banded_counted,
+                                   spatial_cases["warp_sample_banded"]))
     log(json.dumps(dict(main_path=dict(card=card, windows=windows,
                                        peak_bytes=peak), serving=serving,
-                        pipelined=pipelined, training=train,
-                        train_entry=entry, ir_eval=ir_eval,
-                        eval_cli=eval_cli, ir_train=ir_train),
+                        pipelined=pipelined, spatial=spatial, ddp=ddp,
+                        training=train, train_entry=entry, ir_eval=ir_eval,
+                        eval_cli=eval_cli, ir_train=ir_train,
+                        train_cli=train_cli),
                    default=str))
     log(json.dumps(dict(kernels=kernels)))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s  [{card}]")

@@ -52,6 +52,19 @@
 // products are summed in f32 in corner order and rounded once to the
 // output type.
 //
+// Bands: every forward launch samples a band of rows, for the H-sharded
+// stream (refvsr_tpu/parallel/spatial.py, sharded_bilinear_sample). x holds
+// rows [in_row0, in_row0 + hb) of an h-row image (rows past the image are
+// zeros), the flow and the output hold rows [out_row0, out_row0 + ho) of an
+// out_h-row grid. pixel_corners evaluates the coordinates of the whole grid
+// (global h, out_h and output row), decides liveness on the whole image,
+// localises the top anchor row (- in_row0) and clamps it into [lo, hi] (lo
+// = -1 on the band at the image's top, else 0, so that a read past the band
+// border-extends as in the JAX sampler; hi = hb - 1); corners outside the
+// band read 0. warp_sample_launch and the backward pass take the trivial
+// band (in_row0 = out_row0 = 0, hb = h, out_h = ho, lo = -1, hi = h - 1),
+// on which the clamp is a no-op: a live anchor row lies in [-1, h - 1].
+//
 // Backward: fewer reductions by summing in registers first. A thread takes
 // a run of RUN = 8 output pixels of one row for one 16-byte channel group
 // (block (lanes, runs): `lanes` is the power of two >= C / VEC, at most 32,
@@ -105,19 +118,38 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float v) {
 }
 
 struct Geometry {
-  int h, w, c, ho, wo;
+  int h, w, c, ho, wo;  // h, ho: the WHOLE image's and grid's heights
   long long npix;
   float gsx, fsx, gsy, fsy;  // warp_coords' grid and flow scales
 };
 
-// Anchor (xi, yi) of output pixel p = (b, oy, ox), its corner weights (0
-// for a corner outside the image), the mask of its inside corners (bit k for
-// corner k: (yi, xi), (yi, xi + 1), (yi + 1, xi), (yi + 1, xi + 1)) and its
-// fractional coordinates; returns whether the point is live.
+// The band of rows a launch covers (see the head note). The unbanded
+// launches take the trivial band: hb = h, ho = the grid's ho, out_row0 =
+// in_row0 = 0, lo = -1, hi = h - 1 (a no-op clamp: a live anchor row lies
+// in [-1, h - 1]).
+struct Band {
+  int hb;        // rows of x
+  int ho;        // rows of the flow and the output
+  int out_row0;  // the output's first row in the whole grid
+  int in_row0;   // x's first row in the whole image
+  int lo, hi;    // the clamp of the localised anchor row
+};
+
+__host__ __device__ __forceinline__ Band trivial_band(const Geometry& g) {
+  return {g.h, g.ho, 0, 0, -1, g.h - 1};
+}
+
+// Anchor (xi, yi) of output pixel p = (b, oy, ox) (oy the band's row), its
+// corner weights (0 for a corner outside the band), the mask of its inside
+// corners (bit k for corner k: (yi, xi), (yi, xi + 1), (yi + 1, xi),
+// (yi + 1, xi + 1)) and its fractional coordinates; returns whether the
+// point is live. yi is x's row: localised (- in_row0) and clamped into
+// [lo, hi].
 template <typename T, typename Idx>
 __device__ __forceinline__ bool pixel_corners(const T* __restrict__ flow,
                                               Idx p, int oy, int ox,
-                                              const Geometry& g, int* xi_out,
+                                              const Geometry& g,
+                                              const Band& bd, int* xi_out,
                                               int* yi_out, float wt[4],
                                               unsigned* inside,
                                               float* tx_out, float* ty_out) {
@@ -126,8 +158,9 @@ __device__ __forceinline__ bool pixel_corners(const T* __restrict__ flow,
   // xn = gx * gsx + fx * fsx - 1 ; sx = ((xn + 1) * w - 1) * 0.5
   const float xn = __fadd_rn(__fadd_rn(__fmul_rn((float)ox, g.gsx),
                                        __fmul_rn(fx, g.fsx)), -1.0f);
-  const float yn = __fadd_rn(__fadd_rn(__fmul_rn((float)oy, g.gsy),
-                                       __fmul_rn(fy, g.fsy)), -1.0f);
+  const float yn = __fadd_rn(
+      __fadd_rn(__fmul_rn((float)(oy + bd.out_row0), g.gsy),
+                __fmul_rn(fy, g.fsy)), -1.0f);
   const float sx = __fmul_rn(
       __fadd_rn(__fmul_rn(__fadd_rn(xn, 1.0f), (float)g.w), -1.0f), 0.5f);
   const float sy = __fmul_rn(
@@ -147,14 +180,15 @@ __device__ __forceinline__ bool pixel_corners(const T* __restrict__ flow,
   const float tx = sx - x0;
   const float ty = sy - y0;
   const int xi = (int)x0;
-  const int yi = (int)y0;
+  int yi = (int)y0 - bd.in_row0;
+  yi = yi < bd.lo ? bd.lo : (yi > bd.hi ? bd.hi : yi);
   const float cw[4] = {(1.0f - ty) * (1.0f - tx), (1.0f - ty) * tx,
                        ty * (1.0f - tx), ty * tx};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int cy = yi + (k >> 1);
     const int cx = xi + (k & 1);
-    if (cy >= 0 && cy < g.h && cx >= 0 && cx < g.w) {
+    if (cy >= 0 && cy < bd.hb && cx >= 0 && cx < g.w) {
       *inside |= 1u << k;
       wt[k] = cw[k];
     }
@@ -167,40 +201,41 @@ __device__ __forceinline__ bool pixel_corners(const T* __restrict__ flow,
 }
 
 // The same as element offsets of the corners' channel 0 (-1 outside the
-// image), for the forward kernel.
+// band), for the forward kernel.
 template <typename T, typename Idx>
-__device__ __forceinline__ bool pixel_taps(const T* __restrict__ flow, Idx p,
+__device__ __forceinline__ void pixel_taps(const T* __restrict__ flow, Idx p,
                                            int b, int oy, int ox,
-                                           const Geometry& g, Idx off[4],
-                                           float wt[4], float* tx_out,
-                                           float* ty_out) {
+                                           const Geometry& g, const Band& bd,
+                                           Idx off[4], float wt[4]) {
   int xi, yi;
   unsigned inside;
-  const bool live = pixel_corners<T, Idx>(flow, p, oy, ox, g, &xi, &yi, wt,
-                                          &inside, tx_out, ty_out);
+  float tx, ty;
+  pixel_corners<T, Idx>(flow, p, oy, ox, g, bd, &xi, &yi, wt, &inside, &tx,
+                        &ty);
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     off[k] = (inside >> k) & 1u
-                 ? (((Idx)b * g.h + yi + (k >> 1)) * g.w + xi + (k & 1)) * g.c
+                 ? (((Idx)b * bd.hb + yi + (k >> 1)) * g.w + xi + (k & 1)) *
+                       g.c
                  : (Idx)-1;
-  return live;
 }
 
-// One thread per (output pixel, 16-byte channel group); see the head note.
-// kVec: C is a multiple of the group and x, out are 16-byte aligned.
+// One thread per (output pixel of the band, 16-byte channel group); see the
+// head note. kVec: C is a multiple of the group and x, out are 16-byte
+// aligned.
 template <typename T, typename Idx, bool kVec>
 __global__ void __launch_bounds__(THREADS) warp_sample_kernel(
     const T* __restrict__ x, const T* __restrict__ flow, T* __restrict__ out,
-    Geometry geo) {
+    Geometry geo, Band bd) {
   constexpr int VEC = 16 / sizeof(T);
   const int ox = blockIdx.x * blockDim.y + threadIdx.y;
   if (ox >= geo.wo) return;
   const int oy = blockIdx.y;
   const int b = blockIdx.z;
-  const Idx p = ((Idx)b * geo.ho + oy) * geo.wo + ox;
+  const Idx p = ((Idx)b * bd.ho + oy) * geo.wo + ox;
   Idx off[4];
-  float wt[4], tx, ty;
-  pixel_taps<T, Idx>(flow, p, b, oy, ox, geo, off, wt, &tx, &ty);
+  float wt[4];
+  pixel_taps<T, Idx>(flow, p, b, oy, ox, geo, bd, off, wt);
 
   const int ch = threadIdx.x * VEC;
   float acc[VEC];
@@ -311,6 +346,7 @@ __global__ void __launch_bounds__(THREADS) warp_sample_backward_kernel(
   const Idx p0 = ((Idx)b * geo.ho + oy) * geo.wo + ox0;
   const Idx row0 = (Idx)b * geo.h;  // source row of batch item b
   const int groups = (geo.c + VEC - 1) / VEC;
+  const Band bd = trivial_band(geo);
   float d0[RUN], d1[RUN];  // this lane's part of g * d(value)/d(tx, ty)
 #pragma unroll
   for (int i = 0; i < RUN; ++i) {
@@ -332,8 +368,8 @@ __global__ void __launch_bounds__(THREADS) warp_sample_backward_kernel(
       float wt[4], tx, ty;
       unsigned inside;
       if (ox >= geo.wo ||
-          !pixel_corners<T, Idx>(flow, p0 + i, oy, ox, geo, &xi, &yi, wt,
-                                 &inside, &tx, &ty))
+          !pixel_corners<T, Idx>(flow, p0 + i, oy, ox, geo, bd, &xi, &yi,
+                                 wt, &inside, &tx, &ty))
         continue;
       float gv[VEC];
       load_group<T, kVec>(g + (p0 + i) * geo.c + ch, ch, geo.c, gv);
@@ -437,38 +473,42 @@ Geometry make_geometry(int n, int h, int w, int c, int ho, int wo) {
 
 template <typename T, typename Idx, bool kVec>
 void launch_forward(const T* x, const T* flow, T* out, const Geometry& geo,
-                    int n, dim3 block, cudaStream_t stream) {
+                    const Band& bd, int n, dim3 block, cudaStream_t stream) {
   const dim3 grid((unsigned)((geo.wo + block.y - 1) / block.y),
-                  (unsigned)geo.ho, (unsigned)n);
+                  (unsigned)bd.ho, (unsigned)n);
   warp_sample_kernel<T, Idx, kVec><<<grid, block, 0, stream>>>(x, flow, out,
-                                                                geo);
+                                                                geo, bd);
 }
 
+// The forward on band bd of the grid and image that geo describes.
 template <typename T>
-int launch(const void* x, const void* flow, void* out, int n, int h, int w,
-           int c, int ho, int wo, cudaStream_t stream) {
+int launch(const void* x, const void* flow, void* out, int n,
+           const Geometry& geo, const Band& bd, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
+  const int c = geo.c;
   const int groups = (c + VEC - 1) / VEC;
-  if (n <= 0 || n > 65535 || ho <= 0 || ho > 65535 || wo <= 0 || c <= 0 ||
-      groups > THREADS)
+  if (n <= 0 || n > 65535 || bd.ho <= 0 || bd.ho > 65535 || geo.wo <= 0 ||
+      c <= 0 || bd.hb < 0 || groups > THREADS || geo.h < 0 ||
+      geo.ho < bd.out_row0 + bd.ho || bd.out_row0 < 0 || bd.lo > bd.hi)
     return (int)cudaErrorInvalidValue;
-  const Geometry geo = make_geometry(n, h, w, c, ho, wo);
   const dim3 block((unsigned)groups, (unsigned)(THREADS / groups));
   const bool vec = c % VEC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const bool narrow = (long long)n * h * w * c < (1LL << 31) &&
-                      geo.npix * (c > 2 ? c : 2) < (1LL << 31);
+  const bool narrow =
+      (long long)n * bd.hb * geo.w * c < (1LL << 31) &&
+      (long long)n * bd.ho * geo.wo * (c > 2 ? c : 2) < (1LL << 31);
   const T* xt = static_cast<const T*>(x);
   const T* ft = static_cast<const T*>(flow);
   T* ot = static_cast<T*>(out);
   if (vec && narrow)
-    launch_forward<T, int, true>(xt, ft, ot, geo, n, block, stream);
+    launch_forward<T, int, true>(xt, ft, ot, geo, bd, n, block, stream);
   else if (vec)
-    launch_forward<T, long long, true>(xt, ft, ot, geo, n, block, stream);
+    launch_forward<T, long long, true>(xt, ft, ot, geo, bd, n, block, stream);
   else if (narrow)
-    launch_forward<T, int, false>(xt, ft, ot, geo, n, block, stream);
+    launch_forward<T, int, false>(xt, ft, ot, geo, bd, n, block, stream);
   else
-    launch_forward<T, long long, false>(xt, ft, ot, geo, n, block, stream);
+    launch_forward<T, long long, false>(xt, ft, ot, geo, bd, n, block,
+                                        stream);
   return (int)cudaGetLastError();
 }
 
@@ -549,9 +589,30 @@ extern "C" int warp_sample_launch(const void* x, const void* flow, void* out,
                                   int n, int h, int w, int c, int ho, int wo,
                                   int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, flow, out, n, h, w, c, ho, wo, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, flow, out, n, h, w, c, ho, wo, s);
+  const Geometry geo = make_geometry(n, h, w, c, ho, wo);
+  const Band bd = trivial_band(geo);
+  if (dtype == 0) return launch<float>(x, flow, out, n, geo, bd, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, flow, out, n, geo, bd, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The banded forward (head note): x (n, hb, w, c) holds rows [in_row0,
+// in_row0 + hb) of an h-row image; flow (n, ho, wo, 2) and out (n, ho, wo,
+// c) rows [out_row0, out_row0 + ho) of an out_h-row grid; the localised
+// anchor row is clamped into [lo, hi]. dtype and limits as
+// warp_sample_launch.
+extern "C" int warp_sample_banded_launch(const void* x, const void* flow,
+                                         void* out, int n, int hb, int w,
+                                         int c, int ho, int wo, int h,
+                                         int out_h, int out_row0,
+                                         int in_row0, int lo, int hi,
+                                         int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the whole image's and grid's geometry; the band's rows
+  const Geometry geo = make_geometry(n, h, w, c, out_h, wo);
+  const Band bd = {hb, ho, out_row0, in_row0, lo, hi};
+  if (dtype == 0) return launch<float>(x, flow, out, n, geo, bd, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, flow, out, n, geo, bd, s);
   return (int)cudaErrorInvalidValue;
 }
 

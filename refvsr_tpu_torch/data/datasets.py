@@ -360,25 +360,41 @@ def epoch_order(n: int, seed: int, epoch: int) -> np.ndarray:
     return np.random.default_rng(seed + epoch).permutation(n)
 
 
+def rank_order(n: int, seed: int, epoch: int, world_size: int = 1,
+               rank: int = 0) -> np.ndarray:
+    """Rank `rank`'s samples of the epoch: every `world_size`-th entry of
+    the epoch's permutation from `rank` on (DistIterSampler's sharding)."""
+    return epoch_order(n, seed, epoch)[rank::world_size]
+
+
+def rank_len(n: int, batch_size: int, world_size: int = 1) -> int:
+    """The loaders' ``len``: ``ceil(n / world_size) // batch_size``, the
+    batches of the largest shard (a later rank may yield one fewer)."""
+    return -(-n // world_size) // batch_size
+
+
 class TrainLoader:
     """Epoch-seeded shuffling batch iterator: a seeded permutation, each
-    sample augmented by its own rng."""
+    sample augmented by its own rng; rank `rank` of `world_size` reads its
+    shard of it (``rank_order``)."""
 
     def __init__(self, dataset: TrainDataset, batch_size: int,
-                 seed: int = 1234):
+                 seed: int = 1234, world_size: int = 1, rank: int = 0):
         self.ds = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.world_size, self.rank = world_size, rank
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
     def __len__(self):
-        return len(self.ds) // self.batch_size
+        return rank_len(len(self.ds), self.batch_size, self.world_size)
 
     def __iter__(self):
-        order = epoch_order(len(self.ds), self.seed, self.epoch)
+        order = rank_order(len(self.ds), self.seed, self.epoch,
+                           self.world_size, self.rank)
         batch = []
         for idx in order:
             batch.append(self.ds.__getitem__(

@@ -16,7 +16,8 @@ from __future__ import annotations
 import multiprocessing as mp
 import queue as queue_mod
 
-from refvsr_tpu_torch.data.datasets import collate, epoch_order, sample_rng
+from refvsr_tpu_torch.data.datasets import (collate, rank_len, rank_order,
+                                            sample_rng)
 
 # seconds between checks of the workers' health while waiting, and the
 # wait after which live but silent workers count as stalled
@@ -39,15 +40,17 @@ def _worker_main(ds, seed, task_q, result_q):
 
 class MultiWorkerLoader:
     """Batched, epoch-seeded iterator over a TrainDataset, with
-    the TrainLoader's order and batches; ``set_epoch()`` reshuffles. The
+    the TrainLoader's order and batches (rank `rank` of `world_size` reads
+    its shard); ``set_epoch()`` reshuffles. The
     workers start at ``start()`` or the first ``__iter__`` and persist
     until ``close()``."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 1234,
-                 num_workers: int = 4):
+                 num_workers: int = 4, world_size: int = 1, rank: int = 0):
         self.ds = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.world_size, self.rank = world_size, rank
         self.num_workers = max(1, num_workers)
         self.epoch = 0
         self._pool = None
@@ -57,7 +60,7 @@ class MultiWorkerLoader:
         self.epoch = epoch
 
     def __len__(self):
-        return len(self.ds) // self.batch_size
+        return rank_len(len(self.ds), self.batch_size, self.world_size)
 
     def start(self):
         """Start the worker processes, unless they are running."""
@@ -101,7 +104,8 @@ class MultiWorkerLoader:
             self.close()
 
     def _batches(self):
-        order = epoch_order(len(self.ds), self.seed, self.epoch)
+        order = rank_order(len(self.ds), self.seed, self.epoch,
+                           self.world_size, self.rank)
         return [order[b * self.batch_size:(b + 1) * self.batch_size]
                 for b in range(len(order) // self.batch_size)]
 

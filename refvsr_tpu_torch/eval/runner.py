@@ -16,8 +16,21 @@ device (bicubic) and only the small frame crosses to the host.
 
 Images are written by the port's own encoders (``data/png.py``,
 ``data/jpeg.py``) on a small thread pool, and confidence maps are coloured
-with ``utils/colormap.inferno``. One device: the JAX package's per-process
-score files and cross-process totals are ROADMAP Queue 1, item 7."""
+with ``utils/colormap.inferno``.
+
+More than one rank (``parallel/mesh.py``), as the JAX package's processes:
+
+- data-parallel (``torchrun`` ranks, ``spatial_devices`` 1): the
+  quan_qual eval gives rank r the videos whose index is r modulo the rank
+  count, writes ``score_<data>_<mode>_p<r>.txt`` with that shard's lines
+  and its ``(shard p<r>, partial)`` TOTAL, sums the frame-weighted totals
+  over the ranks in float32, and rank 0 writes the global TOTAL to the
+  unsharded file; FOV and conf are not sharded, and rank 0 writes them;
+- spatial (``spatial_devices`` N > 1): every rank streams every video,
+  each on its rows of the frame (``parallel/serve.py``), and rank 0 alone
+  scores the gathered frames and writes files.
+
+The evaluated weights are re-saved by rank 0 alone."""
 
 from __future__ import annotations
 
@@ -41,6 +54,7 @@ from refvsr_tpu_torch.eval.metrics import psnr, psnr_masked, ssim, ssim_masked
 from refvsr_tpu_torch.eval.stream import StreamRunner
 from refvsr_tpu_torch.models.refvsr import build_refvsr
 from refvsr_tpu_torch.ops.resize import resize
+from refvsr_tpu_torch.parallel import mesh
 from refvsr_tpu_torch.train.ckpt import CkptManager
 from refvsr_tpu_torch.utils.colormap import inferno
 from refvsr_tpu_torch.utils.convert import load_pretrained_assets
@@ -130,28 +144,72 @@ def init_eval(config: Config, device="cuda"):
             if explicit:        # a named checkpoint that is missing
                 raise
 
-    date = datetime.datetime.now().strftime("%Y_%m_%d_%H%M")
+    date = _shared_date(dev)
     save_root = os.path.join(config.result_dir, config.EVAL.data,
                              f"{date}_{ckpt_name}")
     Path(save_root).mkdir(parents=True, exist_ok=True)
-    if ckpt_name != "random_init":
+    if ckpt_name != "random_init" and mesh.is_main():
         # the evaluated weights beside the results (evaluation/init.py:26)
         stem = ckpt_name.rsplit(".", 1)[0]
         torch.save({k: v.detach().cpu() for k, v in net.state_dict().items()},
                    os.path.join(save_root, f"{stem}.ckpt"))
 
+    kf_stride = (config.keyframe_stride if config.network == "RefVSR_IR"
+                 else None)
+    cdt = torch.bfloat16 if config.is_amp else torch.float32
+    spatial = None
+    if _spatial(config):
+        from refvsr_tpu_torch.parallel.serve import spatial_eval_fns
+        t = config.frame_num
+        first = ds[0]
+        spatial = spatial_eval_fns(
+            net, config.spatial_halo, (1, t) + first["LR_UW"].shape[1:],
+            (1, t) + first["LR_REF_W"].shape[1:], compute_dtype=cdt,
+            device=dev)
     runner = StreamRunner(
-        net, config.reset_branch, device=dev,
-        compute_dtype=torch.bfloat16 if config.is_amp else torch.float32,
-        pipeline_lanes=net.pipeline_lanes,
-        keyframe_stride=(config.keyframe_stride
-                         if config.network == "RefVSR_IR" else None))
+        net, config.reset_branch, device=dev, compute_dtype=cdt,
+        pipeline_lanes=net.pipeline_lanes, keyframe_stride=kf_stride,
+        spatial=spatial)
     return ds, runner, save_root, ckpt_name
 
 
-def _score_path(save_root, config):
+def _spatial(config) -> bool:
+    return config.spatial_devices > 1
+
+
+def _data_parallel(config) -> bool:
+    return mesh.world_size() > 1 and not _spatial(config)
+
+
+def _writes(config) -> bool:
+    """Whether this rank writes score lines and images: every rank of a
+    data-parallel quan_qual eval (its own shard's), else rank 0."""
+    return mesh.is_main() or (_data_parallel(config)
+                              and config.EVAL.eval_mode in ("quan_qual",
+                                                            "qual_quan"))
+
+
+def _shared_date(device):
+    """The result directory's date, rank 0's on every rank."""
+    now = datetime.datetime.now()
+    if mesh.world_size() == 1:
+        return now.strftime("%Y_%m_%d_%H%M")
+    t = torch.tensor([now.year, now.month, now.day, now.hour, now.minute],
+                     dtype=torch.int64, device=device)
+    mesh.broadcast_([t])
+    y, mo, d, h, mi = (int(v) for v in t.tolist())
+    return f"{y:04d}_{mo:02d}_{d:02d}_{h:02d}{mi:02d}"
+
+
+def _score_path(save_root, config, shard: bool = True):
+    """The score file; a data-parallel quan_qual eval's ranks each write
+    their own (``_p<rank>``), and the global TOTAL goes to the unsharded
+    name (``shard=False``)."""
+    tag = (f"_p{mesh.rank()}" if shard and _data_parallel(config)
+           and config.EVAL.eval_mode in ("quan_qual", "qual_quan") else "")
     return os.path.join(
-        save_root, f"score_{config.EVAL.data}_{config.EVAL.eval_mode}.txt")
+        save_root,
+        f"score_{config.EVAL.data}_{config.EVAL.eval_mode}{tag}.txt")
 
 
 def _host(sr):
@@ -163,6 +221,9 @@ def eval_qual_quan(config: Config, device="cuda"):
     Returns {PSNR, SSIM, sec_per_frame, frames} (empty without frames)."""
     ds, runner, save_root, ckpt_name = init_eval(config, device)
     t = config.frame_num
+    writes = _writes(config)
+    world, rank = mesh.world_size(), mesh.rank()
+    shard_videos = _data_parallel(config)
 
     writer = ImageWriter()
     try:
@@ -182,7 +243,10 @@ def eval_qual_quan(config: Config, device="cuda"):
         def emit(oitem, sr_dev, itr_time):
             """Metrics, score lines, dumps and per-video sums of one
             output; the MEAN line of a finished video prints with the next
-            video's first item's fields (eval_qual_quan.py:47)."""
+            video's first item's fields (eval_qual_quan.py:47). A rank
+            that does not write skips it all."""
+            if not writes:
+                return
             while continue_events and continue_events[0] <= agg["n_emit"]:
                 continue_events.pop(0)
                 agg["frame_len_prev"] += 1
@@ -260,6 +324,10 @@ def eval_qual_quan(config: Config, device="cuda"):
         # dispatches bank theirs for the outputs that follow
         t_unattr = 0.0
         for i in range(len(ds)):
+            # data-parallel: whole videos by rank, so that the recurrent
+            # state stays on one rank (data_sampler.py:31-43,64-72)
+            if shard_videos and ds.idx_video[i] % world != rank:
+                continue
             item = ds[i]
             if item.get("is_continue"):
                 continue_events.append(agg["n_sub"])
@@ -286,7 +354,8 @@ def eval_qual_quan(config: Config, device="cuda"):
         psnr_mean = (agg["psnr_total"] + agg["psnr_v"]) / total_norm
         ssim_mean = (agg["ssim_total"] + agg["ssim_v"]) / total_norm
         time_mean = (agg["time_total"] + agg["time_v"]) / total_norm
-        line = (f"\n[TOTAL {ckpt_name}|{config.EVAL.data}] "
+        shard = f" (shard p{rank}, partial)" if shard_videos else ""
+        line = (f"\n[TOTAL {ckpt_name}|{config.EVAL.data}]{shard} "
                 f"PSNR: {psnr_mean:.5f} SSIM: {ssim_mean:.5f} "
                 f"({time_mean:.5f}sec)\n")
         print(line, end="")
@@ -295,6 +364,31 @@ def eval_qual_quan(config: Config, device="cuda"):
                 f.write(line)
         results_summary = {"PSNR": psnr_mean, "SSIM": ssim_mean,
                            "sec_per_frame": time_mean, "frames": total_norm}
+    if shard_videos:
+        # the shards hold different frame counts: the headline sums the
+        # frame-weighted totals over the ranks (float32, as JAX does)
+        sums = torch.tensor([agg["psnr_total"] + agg["psnr_v"],
+                             agg["ssim_total"] + agg["ssim_v"],
+                             agg["time_total"] + agg["time_v"],
+                             float(total_norm)], dtype=torch.float32,
+                            device=runner.device)
+        torch.distributed.all_reduce(sums)
+        g = sums.cpu().numpy()
+        if g[3] > 0:
+            psnr_mean, ssim_mean, time_mean = (
+                float(g[0] / g[3]), float(g[1] / g[3]), float(g[2] / g[3]))
+            line = (f"\n[TOTAL {ckpt_name}|{config.EVAL.data}] "
+                    f"PSNR: {psnr_mean:.5f} SSIM: {ssim_mean:.5f} "
+                    f"({time_mean:.5f}sec)\n")
+            if rank == 0:
+                print(line, end="")
+                if not config.EVAL.qualitative_only:
+                    with open(_score_path(save_root, config, shard=False),
+                              "a") as f:
+                        f.write(line)
+            results_summary = {"PSNR": psnr_mean, "SSIM": ssim_mean,
+                               "sec_per_frame": time_mean,
+                               "frames": int(g[3])}
     return results_summary
 
 
@@ -309,7 +403,9 @@ def eval_quan_FOV(config: Config, device="cuda"):
     file. Returns the mean of each metric by key."""
     ds, runner, save_root, ckpt_name = init_eval(config, device)
     t = config.frame_num
+    # a rank that does not write runs as the debug mode does: no file
     is_debug = config.EVAL.is_debug
+    quiet = not _writes(config)
 
     acc = {m: {k: 0.0 for k in _FOV_KEYS}
            for m in ("pfi", "pfo", "pfr", "sfi", "sfo", "sfr")}
@@ -326,6 +422,9 @@ def eval_quan_FOV(config: Config, device="cuda"):
         sr_dev, _ = runner.process_device(item["LR_UW"][None, :t],
                                           item["LR_REF_W"][None, :t],
                                           item["is_first"])
+        if quiet:
+            total_norm += 1
+            continue
         if config.flag_HD_in:
             # FOV metrics run on the 1/scale frame, downscaled where it is
             sr_dev = device_downscale(sr_dev, config.scale)
@@ -373,7 +472,7 @@ def eval_quan_FOV(config: Config, device="cuda"):
         time_total += itr_time
         total_norm += 1
 
-    if total_norm == 0:
+    if total_norm == 0 or quiet:
         return {}
     means = {m: {k: v / total_norm for k, v in d.items()}
              for m, d in acc.items()}
@@ -423,6 +522,9 @@ def eval_quan_conf_map(config: Config, device="cuda"):
             _, conf = runner.process_device(item["LR_UW"][None, :t],
                                             item["LR_REF_W"][None, :t],
                                             item["is_first"])
+            count += 1
+            if not _writes(config):
+                continue
             conf_bw, conf_fw, conf_match = [c[0, ..., 0].float().cpu().numpy()
                                             for c in conf]
             conf_prop = np.maximum(conf_bw, conf_fw)
@@ -434,7 +536,6 @@ def eval_quan_conf_map(config: Config, device="cuda"):
                                          item["video_name"],
                                          f"{stem}_{name}.png"),
                             inferno(np.clip(m, 0, 1)))
-            count += 1
     finally:
         writer.close()
     return {"frames": count}
@@ -443,14 +544,18 @@ def eval_quan_conf_map(config: Config, device="cuda"):
 def evaluate(config: Config, device="cuda"):
     """Run ``config.EVAL.eval_mode`` (eval.py:8-21) on `device` (the card
     unless the caller asks for the CPU). Pipelined streaming serves the
-    RefVSR quan_qual path only; elsewhere it warns and streams plainly."""
-    if config.spatial_devices > 1:
-        raise NotImplementedError(
-            f"spatial_devices={config.spatial_devices}: the port evaluates "
-            "on one device (ROADMAP Queue 1, item 7)")
+    one-rank RefVSR quan_qual path only; elsewhere (the spatial path
+    included) it warns and streams plainly."""
+    if config.spatial_devices > 1 and \
+            config.spatial_devices != mesh.world_size():
+        raise SystemExit(
+            f"--spatial_devices {config.spatial_devices}: the process group "
+            f"has {mesh.world_size()} ranks (launch with run.main or "
+            "torchrun)")
     mode = config.EVAL.eval_mode
     if config.pipeline_lanes > 1 and (mode not in ("quan_qual", "qual_quan")
-                                      or config.network == "RefVSR_IR"):
+                                      or config.network == "RefVSR_IR"
+                                      or config.spatial_devices > 1):
         warnings.warn("pipeline_lanes>1 supports the RefVSR quan_qual eval "
                       "path only — falling back to plain streaming")
         config = config.replace(pipeline_lanes=0)

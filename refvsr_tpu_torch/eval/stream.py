@@ -17,11 +17,18 @@ and ``flush`` returns nothing, so callers use one code path for both.
 RefVSR-IR (``keyframe_stride`` set): each window gets a sliding keyframe
 mask (``models/refvsr_ir.sliding_keyframe_mask``), whose first keyframe
 carries over from window to window and starts again with the branch; the
-IR net streams without pipelining."""
+IR net streams without pipelining.
+
+Spatial sharding (``spatial``, from ``parallel/serve.spatial_eval_fns``):
+every rank of the group runs the runner on the same windows; the windows
+go through the spatial functions, which place each rank's rows, run the
+net under the shard-local ops and gather the SR frame and the confidence
+maps on every rank. Plain mode only, as in the JAX package."""
 
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Optional
 
 import numpy as np
@@ -39,12 +46,18 @@ class StreamRunner:
     else a copy moved and cast there (a trainer's f32 net validated in
     bf16 keeps its f32 parameters, and its training mode). `pipeline_lanes`
     must be the net's own (0 or 1 for the plain stream).
-    `keyframe_stride`: the IR net's keyframe stride (None for RefVSR)."""
+    `keyframe_stride`: the IR net's keyframe stride (None for RefVSR).
+    `spatial`: the spatial functions (``parallel/serve.SpatialFns``) that
+    run each window H-sharded over the group's ranks."""
 
     def __init__(self, net, reset_branch: Optional[int], device="cuda",
                  compute_dtype=torch.float32, pipeline_lanes: int = 0,
-                 keyframe_stride: Optional[int] = None):
+                 keyframe_stride: Optional[int] = None, spatial=None):
         self.device = resolve_device(device)
+        if spatial is not None and pipeline_lanes > 1:
+            raise ValueError("the spatial stream runs without pipelining: "
+                             "pipeline_lanes must be 0")
+        self.spatial = spatial
         if keyframe_stride is not None and pipeline_lanes > 1:
             raise ValueError("the IR net (keyframe_stride set) streams "
                              "without pipelining: pipeline_lanes must be 0")
@@ -101,14 +114,20 @@ class StreamRunner:
                 lrs.shape[1], self.keyframe_stride,
                 None if first else self.kf_first)
             kf = (mask,)
+        first_fn, stream_fn = ((self.net.forward_first,
+                                self.net.forward_stream)
+                               if self.spatial is None else
+                               (functools.partial(self.spatial.first,
+                                                  self.net),
+                                functools.partial(self.spatial.stream,
+                                                  self.net)))
         with torch.inference_mode():
             if first:
-                out, self.state, conf = self.net.forward_first(lrs, refs,
-                                                               *kf)
+                out, self.state, conf = first_fn(lrs, refs, *kf)
                 self.count = 0
             else:
-                out, self.state, conf = self.net.forward_stream(
-                    lrs, refs, self.state, *kf)
+                out, self.state, conf = stream_fn(lrs, refs, self.state,
+                                                  *kf)
         self.count += 1
         return out, conf
 

@@ -21,6 +21,7 @@ import torch.nn as nn
 
 from refvsr_tpu_torch.models.blocks import vgg_normalize
 from refvsr_tpu_torch.models.vgg import RELU_TAPS, VGGFeatures
+from refvsr_tpu_torch.parallel.mesh import batch_mean
 
 
 def _normalize(v):
@@ -30,10 +31,12 @@ def _normalize(v):
 
 def _cosine_distance(x_feat, y_feat, x_self_mu):
     """1 - cosine similarity after channel-mean centering; the mean runs
-    over batch and space, so it couples the batch (contextual.py:117)."""
+    over batch and space, so it couples the batch (contextual.py:117), and
+    a data-parallel step takes it over every rank's batch
+    (``parallel.mesh.batch_mean``)."""
     n, _, _, c = y_feat.shape
-    y_mu = y_feat.mean(dim=(0, 1, 2), keepdim=True)
-    x_mu = x_feat.mean(dim=(0, 1, 2), keepdim=True) if x_self_mu else y_mu
+    y_mu = batch_mean(y_feat, (0, 1, 2))
+    x_mu = batch_mean(x_feat, (0, 1, 2)) if x_self_mu else y_mu
     x_n = _normalize(x_feat - x_mu).reshape(n, -1, c)
     y_n = _normalize(y_feat - y_mu).reshape(n, -1, c)
     return (1.0 - torch.matmul(x_n, y_n.transpose(1, 2))).clamp_min(0.0)

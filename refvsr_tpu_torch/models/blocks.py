@@ -15,11 +15,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from refvsr_tpu_torch.ops.image import pixel_shuffle
+from refvsr_tpu_torch.parallel import spatial
 
 
 class Conv2d(nn.Conv2d):
     """torch Conv2d on NHWC tensors: square kernel, padding k//2, bias.
-    Parameters are the usual OIHW ``weight`` and ``bias``."""
+    Parameters are the usual OIHW ``weight`` and ``bias``. Under an active
+    spatial context the input is this rank's band of rows
+    (``parallel/spatial.conv2d``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1):
@@ -27,6 +30,9 @@ class Conv2d(nn.Conv2d):
                          kernel_size // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ctx = spatial.active()
+        if ctx is not None:
+            return spatial.conv2d(ctx, self, x)
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 

@@ -6,9 +6,14 @@
 - ``AlignedAttention``: index-map patch warp (kernel == stride, so the fold
   is a reshape) and, when aligning, ``AlignedConv2d``.
 - ``AlignedConv2d``: per-pixel affine (scale, rotation) resampling of the
-  warped canvas. Its tap coordinates are f32 whatever the compute dtype, and
-  the bilinear gather is plain torch indexing, chunked to bound the corner
-  temporaries (4 x 8.3M x 48 values at 1080p input)."""
+  warped canvas. Its tap coordinates are f32 whatever the compute dtype,
+  and the bilinear gather is plain torch indexing, chunked to bound the
+  corner temporaries (4 x 8.3M x 48 values at 1080p input).
+
+Under an active spatial context (``parallel/spatial.py``) the matching runs
+on this rank's band of LR patch rows against the whole ref table, the
+patch warp reads a gathered table, and AlignedConv2d's strided head conv
+and fold take their shard-local forms."""
 
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ from refvsr_tpu_torch.ops.kernels.argmax_matmul import argmax_matmul
 from refvsr_tpu_torch.ops.patches import (extract_patches,
                                           fold_non_overlapping,
                                           gather_patches)
-from refvsr_tpu_torch.ops.resize import avg_pool_2x2, resize
+from refvsr_tpu_torch.ops.resize import _resize_whole, avg_pool_2x2, resize
+from refvsr_tpu_torch.parallel import mesh, spatial
 
 # corner-gather chunk: taps * C values per gathered corner
 _AFFINE_CHUNK_ELEMS = 1 << 26
@@ -56,8 +62,68 @@ class FeatureMatching(nn.Module):
         return getattr(self.feature_extract, self.map_name)(
             self.feature_extract(img))
 
+    def _ratios(self):
+        """(LR rows, ref rows) per row of the lr and ref patch grids."""
+        near = self.scale // 2 if self.flag_HD_in else 1
+        pool = 2 if self.feature_extract.out_channels == 128 else 1
+        return near * pool, near * 2 * pool
+
+    def _patches(self, img, is_ref: bool):
+        """Normalised 3x3 patches of an image's match features, (N, gh,
+        gw, D): the forward's pipeline for one side."""
+        x = vgg_normalize(img)
+        if self.flag_HD_in:
+            sf = 1.0 / (self.scale // 2)
+            x = resize(x, scale_factor=sf, mode="nearest")
+        f = self._feat(avg_pool_2x2(x) if is_ref else x)
+        p = extract_patches(f, 3, 1, "same")
+        return _l2_normalize(p, 2).reshape(*f.shape[:3], -1)
+
+    def _band_patches(self, ctx, img, is_ref: bool):
+        """This rank's rows of one side's patch grid, from a band of the
+        image with a margin of 8 grid rows a side: the convolutions,
+        pools and the reflect-padded patches of the band are the whole
+        image's at every row the margin keeps away from the band's
+        edges. Returns (patches (N, rows, gw, D), grid rows)."""
+        ratio = self._ratios()[1 if is_ref else 0]
+        n = ctx.whole(img)
+        g = n // ratio
+        margin = 8 * ratio
+
+        def span(j):
+            a, b = mesh.part(g, ctx.world, j)
+            return max(0, a * ratio - margin), min(n, b * ratio + margin)
+        band = spatial.fetch_rows(ctx, img, n, span)
+        with spatial.replicated():
+            p = self._patches(band, is_ref)
+        a, b = ctx.part(g)
+        off = a - span(ctx.rank)[0] // ratio
+        return p[:, off:off + (b - a)], g
+
+    def _forward_sharded(self, ctx, lr, ref):
+        """The matching on this rank's band (module docstring of
+        ``parallel/spatial.py``): the band's LR patch rows against the
+        whole ref table, gathered from every rank's rows of it."""
+        lr_p, g = self._band_patches(ctx, lr, False)
+        ref_p, g_ref = self._band_patches(ctx, ref, True)
+        n, rows, gw, d = lr_p.shape
+        ref_p = spatial.gather_rows(ref_p, g_ref, 1, ctx)
+        conf, index = argmax_matmul(ref_p.reshape(n, -1, d).contiguous(),
+                                    lr_p.reshape(n, -1, d).contiguous())
+        conf = conf.to(lr_p.dtype).reshape(n, rows, gw, 1)
+        h = ctx.whole(lr)
+        if h != g:
+            conf = spatial.resize(ctx, conf, h / g, "bicubic",
+                                  _resize_whole, n=g).clamp(0.0, 1.0)
+        return conf, spatial.index_part(index, g, gw, ctx)
+
     def forward(self, lr, ref):
-        """lr (N,h,w,3), ref (N,hr,wr,3) -> conf (N,h,w,1), index (N,L)."""
+        """lr (N,h,w,3), ref (N,hr,wr,3) -> conf (N,h,w,1), index (N,L).
+        Under an active spatial context lr and ref are this rank's bands
+        and the index map is its part of the flattened L axis."""
+        ctx = spatial.active()
+        if ctx is not None:
+            return self._forward_sharded(ctx, lr, ref)
         h = lr.shape[1]
         lr = vgg_normalize(lr)
         ref = vgg_normalize(ref)
@@ -111,18 +177,22 @@ def _affine_corner_weights(hp, wp, p_row, p_col):
     return lt_row_c.long(), lt_col_c.long(), w00, w01, w10, w11
 
 
-def affine_bilinear_gather(xp, p_row, p_col):
+def affine_bilinear_gather(xp, p_row, p_col, row0: int = 0, hp=None):
     """Affine tap sampler on an already padded canvas.
 
     xp (N, Hp, Wp, C); p_row/p_col (N, ...) f32 canvas coords ->
     (N, ..., C). Corner weights are f32 cast to xp.dtype and the four
     products are summed in xp.dtype, as in the JAX sampler. A +1 corner
-    that leaves the canvas is read clamped; its weight is exactly 0."""
-    n, hp, wp, c = xp.shape
+    that leaves the canvas is read clamped; its weight is exactly 0.
+    A band of the canvas: xp holds padded rows [row0, row0 + Hb) of an
+    `hp`-row canvas; the corners are clamped into the whole canvas, then
+    localised and clamped into the band (the spatial fold)."""
+    n, hb, wp, c = xp.shape
+    hp = hb if hp is None else hp
     idx_shape = p_row.shape
     ltr, ltc, w00, w01, w10, w11 = _affine_corner_weights(hp, wp, p_row,
                                                            p_col)
-    flat = xp.reshape(n, hp * wp, c)
+    flat = xp.reshape(n, hb * wp, c)
     dt = xp.dtype
     args = [a.reshape(n, -1) for a in (ltr, ltc, w00, w01, w10, w11)]
     total = args[0].shape[1]
@@ -132,6 +202,9 @@ def affine_bilinear_gather(xp, p_row, p_col):
     for s in range(0, total, per):
         r, cc, a, b, d, e = (t[:, s:s + per] for t in args)
         r1 = (r + 1).clamp_max(hp - 1)
+        if row0 or hb != hp:
+            r = (r - row0).clamp(0, hb - 1)
+            r1 = (r1 - row0).clamp(0, hb - 1)
         c1 = (cc + 1).clamp_max(wp - 1)
 
         def v(ri, ci):
@@ -166,7 +239,21 @@ class AlignedConv2d(nn.Module):
         ks = self.kernel_size
         query = resize(query, scale_factor=2, mode="bicubic")
         a = torch.cat([self.conv1(ref), self.conv1(query)], -1)
-        affine = (self.p_conv(a) + 1.0).clamp(-3.0, 3.0)
+        ctx = spatial.active()
+        if ctx is None:
+            affine = self.p_conv(a)
+        else:
+            # the strided head conv gives the whole (small) affine grid;
+            # the rest of p_conv and the grid math run on it whole
+            c0 = self.p_conv[0]
+            if c0.stride[0] == 1:
+                raise ValueError("AlignedConv2d at stride 1 has no "
+                                 "spatial rule")
+            affine = spatial.sharded_strided_conv_small(
+                a, c0.weight, c0.bias, c0.stride[0], c0.padding[0], ctx)
+            with spatial.replicated():
+                affine = self.p_conv[1:](affine)
+        affine = (affine + 1.0).clamp(-3.0, 3.0)
         n, h, w, _ = affine.shape
         affine = affine.float()
         dev = affine.device
@@ -193,6 +280,12 @@ class AlignedConv2d(nn.Module):
         p_row = rx * cos_t - ry * sin_t + center + p0_row
         p_col = rx * sin_t + ry * cos_t + center + p0_col
 
+        if ctx is not None:
+            # the taps' static bound (the JAX package's min_halo)
+            min_halo = int(np.ceil(1.4143 * (ks / 2 + 0.5) * 3.0)) + \
+                self.stride
+            return spatial.sharded_affine_fold(x, 1, p_row, p_col, ks,
+                                               min_halo, ctx)
         xp = F.pad(x.permute(0, 3, 1, 2), (1,) * 4,
                    mode="reflect").permute(0, 2, 3, 1)
         c = x.shape[-1]
@@ -219,8 +312,12 @@ class AlignedAttention(nn.Module):
         value before the alignment (the Runner's sample tile)."""
         h, w = lr.shape[1], lr.shape[2]
         k = self.scale
+        ctx = spatial.active()
 
         def patch_warp(v):
+            if ctx is not None:
+                return spatial.sharded_patch_warp(
+                    v, index_map, k, (2 * ctx.whole(lr), 2 * w), ctx)
             unfolded = extract_patches(v, k, k, "same")
             return fold_non_overlapping(gather_patches(unfolded, index_map),
                                         (h * 2, w * 2), k, v.shape[-1])

@@ -22,6 +22,11 @@ frames, and the L - 1 unfinished chains ride in the state (``pipe_*``).
 ``zero_flow`` (the serving path, ``EVAL.is_gradio``) replaces SPyNet's
 flows by zeros; the warps still run, on zero flows.
 
+Under an active spatial context (``parallel/spatial.py``) the entry points
+take each rank's band of rows of the window (and of the state: H at
+ndim-3, the index tail's flattened L axis split) and every op runs its
+shard-local rule; SPyNet runs replicated on the gathered frames.
+
 Reference quirk kept: the intra-window forward branch warps the already
 warped low-res ``feat_prop`` onto the 2x grid for ``feat_prop_up``
 (RefVSR.py:252-254); the cross-window step warps the saved UP tensor.
@@ -52,6 +57,7 @@ from refvsr_tpu_torch.models.matching import AlignedAttention, FeatureMatching
 from refvsr_tpu_torch.models.spynet import SPyNet
 from refvsr_tpu_torch.ops.resize import resize
 from refvsr_tpu_torch.ops.warp import warp
+from refvsr_tpu_torch.parallel import spatial
 
 
 @dataclass
@@ -109,9 +115,35 @@ def _up2_clamp(x):
 
 
 def _flow_up2(flow):
-    """2x-upscale a flow field for warping UP features (RefVSR.py:220,254)."""
-    return resize(flow, scale_factor=2, mode="bilinear",
-                  align_corners=True) * 2.0
+    """2x-upscale a flow field for warping UP features (RefVSR.py:220,254).
+    align_corners=True has no integer-ratio offset, so under an active
+    spatial context the flow is gathered whole, upscaled and banded."""
+    ctx = spatial.active()
+    if ctx is None:
+        return resize(flow, scale_factor=2, mode="bilinear",
+                      align_corners=True) * 2.0
+    h = ctx.whole(flow)
+    full = spatial.gather_rows(flow, h, 1, ctx)
+    with spatial.replicated():
+        up = _flow_up2(full)
+    return spatial.band_of(up, 2 * h, 1, ctx)
+
+
+def replicated_rows(fn, *xs, dim: int = 1):
+    """``fn(*xs)`` on whole tensors: under an active spatial context each
+    x (a band of rows along `dim`) is gathered whole, `fn` runs replicated
+    and this rank's rows of each output are kept (rule (c)); otherwise
+    ``fn(*xs)``. Outputs share the inputs' rows along `dim`."""
+    ctx = spatial.active()
+    if ctx is None:
+        return fn(*xs)
+    n = ctx.whole(xs[0], dim)
+    whole = [spatial.gather_rows(x, n, dim, ctx) for x in xs]
+    with spatial.replicated():
+        out = fn(*whole)
+    if isinstance(out, tuple):
+        return tuple(spatial.band_of(o, n, dim, ctx) for o in out)
+    return spatial.band_of(out, n, dim, ctx)
 
 
 def _fusion_pair(cin, feat0, mid):
@@ -185,11 +217,15 @@ class RefVSRNet(nn.Module):
             n, t, h, w = lrs.shape[:4]
             z = lrs.new_zeros((n, t - 1, h, w, 2))
             return z, z
-        fwd = [self.FlowNet(lrs[:, j + 1], lrs[:, j])     # RefVSR.py:184
-               for j in range(lrs.shape[1] - 1)]
-        bwd = [self.FlowNet(lrs[:, j], lrs[:, j + 1])     # RefVSR.py:189
-               for j in range(lrs.shape[1] - 1)]
-        return torch.stack(fwd, 1), torch.stack(bwd, 1)
+
+        def flows(lrs):
+            fwd = [self.FlowNet(lrs[:, j + 1], lrs[:, j])   # RefVSR.py:184
+                   for j in range(lrs.shape[1] - 1)]
+            bwd = [self.FlowNet(lrs[:, j], lrs[:, j + 1])   # RefVSR.py:189
+                   for j in range(lrs.shape[1] - 1)]
+            return torch.stack(fwd, 1), torch.stack(bwd, 1)
+        # SPyNet's /32 pyramid has no integer-ratio band: replicated
+        return replicated_rows(flows, lrs, dim=2)
 
     def compute_matching(self, lrs, refs):
         """Batched per-frame matching: lrs (N, T, h, w, 3), refs
@@ -440,10 +476,10 @@ class RefVSRNet(nn.Module):
         if self.zero_flow:
             return state.flows_fwd, state.flows_bwd
         last, prev = lrs[:, -1], lrs[:, -2]
-        fwd = torch.cat([state.flows_fwd[:, 1:],
-                         self.FlowNet(last, prev)[:, None]], 1)
-        bwd = torch.cat([state.flows_bwd[:, 1:],
-                         self.FlowNet(prev, last)[:, None]], 1)
+        new_fwd, new_bwd = replicated_rows(
+            lambda a, b: (self.FlowNet(a, b), self.FlowNet(b, a)), last, prev)
+        fwd = torch.cat([state.flows_fwd[:, 1:], new_fwd[:, None]], 1)
+        bwd = torch.cat([state.flows_bwd[:, 1:], new_bwd[:, None]], 1)
         return fwd, bwd
 
     def _stream_tails(self, lrs, refs, state: StreamState):

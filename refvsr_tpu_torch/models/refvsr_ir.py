@@ -42,7 +42,8 @@ import torch.nn.functional as F
 from refvsr_tpu_torch.models.blocks import Conv2d, ResidualBlocksWithInputConv
 from refvsr_tpu_torch.models.edvr import EDVRFeatureExtractor
 from refvsr_tpu_torch.models.refvsr import (RefVSRNet, StreamState,
-                                            _flow_up2, init_stream_state)
+                                            _flow_up2, init_stream_state,
+                                            replicated_rows)
 from refvsr_tpu_torch.ops.warp import warp
 
 
@@ -97,7 +98,11 @@ class RefVSRIRNet(RefVSRNet):
     def compute_refill_features(self, lrs, keys):
         """EDVR features of the frames `keys` (indices into the window)
         of lrs (N, T, H, W, 3), each from its 5-frame mirror-padded
-        neighbourhood (RefVSR_IR.py:194-215): (N, len(keys), H, W, 64)."""
+        neighbourhood (RefVSR_IR.py:194-215): (N, len(keys), H, W, 64).
+        EDVR runs replicated under an active spatial context."""
+        return replicated_rows(lambda x: self._refill(x, keys), lrs, dim=2)
+
+    def _refill(self, lrs, keys):
         n, t, h, w, c = lrs.shape
         pad_h, pad_w = (4 - h % 4) % 4, (4 - w % 4) % 4
         if pad_h or pad_w:

@@ -11,7 +11,16 @@ import torch.nn.functional as F
 
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     """Depth-to-space with torch.nn.PixelShuffle channel order
-    (channel = c*r*r + dy*r + dx): (N, H, W, C*r*r) -> (N, H*r, W*r, C)."""
+    (channel = c*r*r + dy*r + dx): (N, H, W, C*r*r) -> (N, H*r, W*r, C).
+    Under an active spatial context x is this rank's band of rows."""
+    from refvsr_tpu_torch.parallel import spatial
+    ctx = spatial.active()
+    if ctx is not None:
+        return spatial.pixel_shuffle(ctx, x, r, _pixel_shuffle_whole)
+    return _pixel_shuffle_whole(x, r)
+
+
+def _pixel_shuffle_whole(x, r):
     return F.pixel_shuffle(x.permute(0, 3, 1, 2), r).permute(0, 2, 3, 1)
 
 

@@ -48,6 +48,7 @@ from refvsr_tpu_torch.ops.kernels import build
 # the C launchers' arguments before the stream
 _FORWARD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
 _BACKWARD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+_BANDED_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = {torch.float32: 1024, torch.bfloat16: 2048}
@@ -59,15 +60,19 @@ def dx_pitch(c: int) -> int:
     return -(-c // 4) * 4
 
 
-def warp_coords(in_hw, flow: torch.Tensor):
+def warp_coords(in_hw, flow: torch.Tensor, out_h: int | None = None,
+                row0: int = 0):
     """Source pixel coords (sx, sy), each (N, Ho, Wo) f32, of RefVSR's
     propagation warp: base grid linspace(-1, 1) over the FLOW's grid, flow
     normalised by the INPUT's half extent, unnormalised align_corners=False
     against the input extent. The kernel evaluates the same expression in
-    the same order."""
+    the same order. A band of the flow's rows: `out_h` is the whole grid's
+    height and `row0` the band's first row (the banded kernel's)."""
     h, w = in_hw
     ho, wo = flow.shape[1], flow.shape[2]
-    gy = torch.arange(ho, dtype=torch.float32, device=flow.device)[:, None]
+    gy = torch.arange(row0, row0 + ho, dtype=torch.float32,
+                      device=flow.device)[:, None]
+    ho = ho if out_h is None else out_h
     gx = torch.arange(wo, dtype=torch.float32, device=flow.device)[None, :]
     fx = flow[..., 0].float()
     fy = flow[..., 1].float()
@@ -142,6 +147,82 @@ def warp_sample_backward_plain(g: torch.Tensor, flow: torch.Tensor,
         grads = torch.autograd.grad(warp_sample_plain(xx, ff),
                                     [xx] if x is None else [xx, ff], g)
     return grads[0], (None if x is None else grads[1])
+
+
+def warp_sample_banded_plain(x: torch.Tensor, flow: torch.Tensor, h: int,
+                             out_h: int, out_row0: int, in_row0: int,
+                             lo: int, hi: int) -> torch.Tensor:
+    """Plain version of the banded K1 kernel: the warp of a band of rows.
+
+    x (N, Hb, W, C) holds rows [in_row0, in_row0 + Hb) of an (N, h, W, C)
+    source (rows outside [0, h) are zeros); flow (N, Hob, Wo, 2) holds rows
+    [out_row0, out_row0 + Hob) of an out_h-row flow. The coordinates are
+    ``warp_coords`` of the whole grid; a point's liveness is the whole
+    image's; its top anchor row, localised (``- in_row0``), is clamped into
+    [lo, hi] (the JAX sharded sampler's rule, ``refvsr_tpu/parallel/
+    spatial.py:137-141``: lo = -1 where the band starts at the image's top,
+    else 0 so that a read past the band border-extends; hi = Hb - 1), and
+    corners outside [0, Hb) read 0. With in_row0 = out_row0 = 0, h = Hb,
+    out_h = Hob, lo = -1 and hi = h - 1 it is ``warp_sample_plain``."""
+    n, hb, w, c = x.shape
+    sx, sy = warp_coords((h, w), flow, out_h, out_row0)
+    dt = x.dtype
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    tx = sx - x0
+    ty = sy - y0
+    valid = (y0 >= -1.0) & (y0 <= h - 1.0) & (x0 >= -1.0) & (x0 <= w - 1.0)
+    tx = torch.where(valid, tx, 0.0)
+    ty = torch.where(valid, ty, 0.0)
+    x0i = torch.nan_to_num(x0, 0.0).clamp(-2.0, w).long()
+    y0i = (torch.nan_to_num(y0, 0.0).clamp(-1.0, h - 1.0).long()
+           - in_row0).clamp(lo, hi)
+    flat = x.reshape(n, hb * w, c)
+    bidx = torch.arange(n, device=x.device)[:, None]
+    zero = torch.zeros((), dtype=dt, device=x.device)
+
+    def corner(yi, xi):
+        idx = yi.clamp(0, hb - 1) * w + xi.clamp(0, w - 1)
+        v = flat[bidx, idx.reshape(n, -1)].reshape(*yi.shape, c)
+        inside = (yi >= 0) & (yi < hb) & (xi >= 0) & (xi < w)
+        return torch.where(inside[..., None], v, zero)
+
+    out = (corner(y0i, x0i) * ((1 - ty) * (1 - tx))[..., None].to(dt)
+           + corner(y0i, x0i + 1) * ((1 - ty) * tx)[..., None].to(dt)
+           + corner(y0i + 1, x0i) * (ty * (1 - tx))[..., None].to(dt)
+           + corner(y0i + 1, x0i + 1) * (ty * tx)[..., None].to(dt))
+    return torch.where(valid[..., None], out, zero)
+
+
+def warp_sample_banded(x: torch.Tensor, flow: torch.Tensor, h: int,
+                       out_h: int, out_row0: int, in_row0: int, lo: int,
+                       hi: int) -> torch.Tensor:
+    """The banded K1 kernel (forward only; the spatial stream is
+    inference): ``warp_sample_banded_plain``'s function. CPU tensors run
+    the plain version; CUDA tensors run the kernel (its conditions as
+    ``warp_sample``'s), or raise. ``warp_sample_banded.launches`` counts
+    kernel launches."""
+    _check(x, flow)
+    if x.device.type == "cpu":
+        return warp_sample_banded_plain(x, flow, h, out_h, out_row0,
+                                        in_row0, lo, hi)
+    x, flow = x.contiguous(), flow.contiguous()
+    _check_cuda(x, flow)
+    n, hb, w, c = x.shape
+    if c > _MAX_C[x.dtype]:
+        raise ValueError(f"warp_sample_banded takes C up to "
+                         f"{_MAX_C[x.dtype]} in {x.dtype}, got {c}")
+    ho, wo = flow.shape[1], flow.shape[2]
+    out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = build.function("warp_sample", "warp_sample_banded_launch",
+                        _BANDED_ARGS)
+    build.launch(fn, x.device, x.data_ptr(), flow.data_ptr(), out.data_ptr(),
+                 n, hb, w, c, ho, wo, h, out_h, out_row0, in_row0, lo, hi,
+                 _DTYPES[x.dtype])
+    warp_sample_banded.launches += 1
+    return out
 
 
 def _check(x, flow):
@@ -264,3 +345,4 @@ def warp_sample(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 warp_sample.launches = 0
 warp_sample_backward.launches = 0
+warp_sample_banded.launches = 0

@@ -26,7 +26,10 @@ def same_pad_reflect(x: torch.Tensor, ksize: int, stride: int):
 
 def extract_patches(x: torch.Tensor, ksize: int, stride: int,
                     padding: str = "same") -> torch.Tensor:
-    """(N, H, W, C) -> (N, L, k*k*C), L = out_h*out_w row-major."""
+    """(N, H, W, C) -> (N, L, k*k*C), L = out_h*out_w row-major. It has
+    no spatial rule (its callers run it on whole tensors)."""
+    from refvsr_tpu_torch.parallel import spatial
+    spatial.refuse("extract_patches", x)
     if padding == "same":
         x = same_pad_reflect(x, ksize, stride)
     n, h, w, c = x.shape

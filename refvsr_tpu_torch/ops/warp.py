@@ -6,7 +6,8 @@ The reference uses two different warpers:
    flow's size, flow normalised by the input size, ``grid_sample`` with
    align_corners=False and zeros padding:
    ``src = (i + f) * S/(S-1) - 0.5``. Every call goes to kernel K1
-   (``ops/kernels/warp_sample.py``), which evaluates ``warp_coords`` itself.
+   (``ops/kernels/warp_sample.py``), which evaluates ``warp_coords`` itself;
+   under spatial sharding, to its banded form.
 2. ``flow_warp()`` (mmedit flow_warp.py, used inside SPyNet only):
    ``src = i + f``, align_corners=True, border padding. The JAX package never
    sends it to a kernel; here it is the plain sampler.
@@ -22,7 +23,13 @@ from refvsr_tpu_torch.ops.kernels.warp_sample import (  # noqa: F401
 
 def warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """RefVSR's propagation warp. x: (N, H, W, C); flow: (N, Ho, Wo, 2)
-    pixel-space (fx, fy). The output takes the FLOW's spatial size."""
+    pixel-space (fx, fy). The output takes the FLOW's spatial size. Under
+    an active spatial context x and the flow are this rank's bands of rows
+    and the banded K1 kernel samples the halo-extended band
+    (``parallel/spatial.sharded_warp``)."""
+    from refvsr_tpu_torch.parallel import spatial
+    if spatial.active() is not None:
+        return spatial.sharded_warp(x, flow)
     return warp_sample(x.contiguous(), flow.contiguous())
 
 

@@ -12,16 +12,35 @@ Evaluation (``--eval_mode`` quan_qual, FOV or conf; ``eval/runner.py``):
 
 Both run on the card; ``-cpu`` runs on the CPU. Without ``--config`` an
 evaluation rebuilds the config from the training run's ``config.json``
-(``<log_offset>/<project>/<mode>/config/``) where there is one. More than
-one device (``--devices``/``--spatial_devices`` above 1, ROADMAP Queue 1,
-item 7) exits with a message. ``-dist`` is accepted and changes nothing,
-as in the JAX package."""
+(``<log_offset>/<project>/<mode>/config/``) where there is one.
+
+More than one device, one rule for every entry point:
+
+- under ``torchrun`` (``WORLD_SIZE`` set) each rank joins the group the
+  environment describes; a ``--devices`` (training) or
+  ``--spatial_devices`` (evaluation) above 1 must equal ``WORLD_SIZE``;
+- without it, ``--devices N`` (training) or ``--spatial_devices N``
+  (evaluation) spawns N ranks of this command with the environment
+  ``torchrun`` would give them, so the JAX package's command line works
+  as written.
+
+Training on N ranks is data-parallel: ``batch_size`` is the whole batch
+and must divide by N. An evaluation on ``torchrun`` ranks without
+``--spatial_devices`` is data-parallel over whole videos; with it, every
+frame's H axis is split over the ranks (``parallel/serve.py``). As in the
+JAX package, training ignores ``--spatial_devices``, an evaluation
+ignores ``--devices``, and ``-dist`` changes nothing. Rank r runs on
+``cuda:(LOCAL_RANK % device_count)``; the backend (``nccl`` when each
+rank has a card of its own, else ``gloo``) is printed on rank 0's first
+line."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import random
+import sys
 
 import numpy as np
 
@@ -68,9 +87,9 @@ def build_parser():
                    help="accepted for the reference's flag surface; "
                         "changes nothing")
     p.add_argument("--devices", type=int, default=None,
-                   help="devices of the data-parallel mesh (one only)")
+                   help="training: ranks of the data-parallel group")
     p.add_argument("--spatial_devices", type=int, default=None,
-                   help="eval: devices each frame is split over (one only)")
+                   help="eval: ranks each frame's rows are split over")
     p.add_argument("--spatial_halo", type=int, default=None,
                    help="halo rows exchanged per neighbour (default 32)")
     p.add_argument("--pipeline_lanes", type=int, default=None,
@@ -134,19 +153,30 @@ def build_config(args):
     return c
 
 
-def main(argv=None):
-    """Parse `argv`, seed, and train (returns the Runner) or evaluate
-    (returns the summary)."""
-    args = build_parser().parse_args(argv)
-    for flag in ("devices", "spatial_devices"):
-        n = getattr(args, flag)
-        if n is not None and n > 1:
-            raise SystemExit(
-                f"--{flag} {n}: the port runs on one device (more than one "
-                "is ROADMAP Queue 1, item 7)")
-    config = build_config(args)
-    device = "cpu" if args.cpu else "cuda"
+def _refuse_disagreement(args, n: int, world: int):
+    if n > 1 and n != world:
+        flag = "--devices" if args.is_train else "--spatial_devices"
+        raise SystemExit(f"{flag} {n} disagrees with WORLD_SIZE {world}: "
+                         "under torchrun the flag must equal the rank count")
 
+
+def _precheck(args, config, n: int):
+    """What the ranks would refuse, refused before they are spawned."""
+    if args.is_train:
+        if config.batch_size % n:
+            raise SystemExit(
+                f"batch_size {config.batch_size} not divisible by the "
+                f"{n}-device data mesh (pass -b or --devices)")
+        return
+    from refvsr_tpu_torch.data.datasets import TestDataset
+    from refvsr_tpu_torch.parallel.serve import validate_spatial_shapes
+    ds = TestDataset(config, is_valid=False)
+    if len(ds):
+        h, w = ds[0]["LR_UW"].shape[1:3]
+        validate_spatial_shapes(h, w, n, config.spatial_halo)
+
+
+def _run(args, config, device):
     random.seed(config.manual_seed)
     np.random.seed(config.manual_seed)
     if not args.is_train:
@@ -156,8 +186,11 @@ def main(argv=None):
         return summary
 
     if args.delete_log and args.resume is None and args.resume_abs is None:
-        from refvsr_tpu_torch.utils.console import handle_directory
-        handle_directory(config, True)
+        from refvsr_tpu_torch.parallel import mesh
+        if mesh.is_main():
+            from refvsr_tpu_torch.utils.console import handle_directory
+            handle_directory(config, True)
+        mesh.barrier(device)
     from refvsr_tpu_torch.train.runner import Runner
     runner = Runner(config, device=device)
     try:
@@ -169,6 +202,47 @@ def main(argv=None):
     finally:
         runner.close()
     return runner
+
+
+def _run_rank(args, config):
+    """One rank: join the group, run, leave. Returns what rank 0 can pass
+    back to a spawning parent (an evaluation's summary)."""
+    from refvsr_tpu_torch.parallel import mesh
+    want = "cpu" if args.cpu else "cuda"
+    backend = mesh.init_from_env(want)
+    try:
+        if mesh.is_main():
+            print(f"# process group: backend {backend}, "
+                  f"{mesh.world_size()} ranks", flush=True)
+        out = _run(args, config, mesh.device_for_rank(want))
+        return out if not args.is_train else None
+    finally:
+        mesh.destroy()
+
+
+def main(argv=None):
+    """Parse `argv`, seed, and train (returns the Runner) or evaluate
+    (returns the summary); with more than one rank, see the module
+    docstring (a spawning parent returns rank 0's evaluation summary, and
+    None for training)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    n = (args.devices if args.is_train else args.spatial_devices) or 1
+    if "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        _refuse_disagreement(args, n, world)
+        config = build_config(args)
+        if world > 1:
+            return _run_rank(args, config)
+    else:
+        config = build_config(args)
+        if n > 1:
+            _precheck(args, config, n)
+            from refvsr_tpu_torch.parallel import mesh
+            # no deadline: a training run lasts as long as it lasts, and a
+            # rank that hangs fails its collectives (mesh.COLLECTIVE_TIMEOUT_S)
+            return mesh.spawn(main, (argv,), n)
+    return _run(args, config, "cpu" if args.cpu else "cuda")
 
 
 if __name__ == "__main__":

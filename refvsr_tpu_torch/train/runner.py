@@ -15,8 +15,14 @@ validation PSNR, ``valid_epoch/PSNR`` and a checkpoint scored by it;
 and ``checkpoint/train/epoch/`` (``train/ckpt.py``), with the sample tiles
 under ``sample/valid/`` when ``save_sample``.
 
-One card, rank 0: what the JAX Runner shards by process count is world
-size 1 here. The Trainer needs no batch to initialise, so the Runner draws
+Data parallelism (a process group of more than one rank, as the JAX
+Runner's process count): each rank reads its shard of the epoch
+(``order[rank::world]``) in batches of ``batch_size // world``, and every
+rank stops at the batch count of the smallest shard, so that no rank
+waits in a collective for a batch another rank does not have. The log
+tree (config, sources, ``cost.txt``, TensorBoard, checkpoints, sample
+tiles) and the console lines are rank 0's alone; every rank validates and
+resumes. The Trainer needs no batch to initialise, so the Runner draws
 none; the batches are the same, since each sample has its own rng."""
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from refvsr_tpu_torch.data.png import write_image
 from refvsr_tpu_torch.data.prefetch import prefetch
 from refvsr_tpu_torch.eval.stream import StreamRunner
 from refvsr_tpu_torch.losses import cx_options
+from refvsr_tpu_torch.parallel import mesh
 from refvsr_tpu_torch.train.ckpt import CkptManager
 from refvsr_tpu_torch.train.trainer import Trainer
 from refvsr_tpu_torch.utils.console import (end_status, format_train_line,
@@ -60,25 +67,34 @@ class Runner:
     def __init__(self, config: Config, device="cuda"):
         self.config = config
         self.device = resolve_device(device)
+        world, rank = mesh.world_size(), mesh.rank()
+        if config.batch_size % world:
+            raise SystemExit(
+                f"batch_size {config.batch_size} not divisible by the "
+                f"{world}-device data mesh (pass -b or --devices)")
+        self.is_main = rank == 0
         self.trainer = Trainer(config, device=self.device)
         self.train_ds = TrainDataset(config)
         self.valid_ds = TestDataset(config, is_valid=True)
+        per_rank = config.batch_size // world
+        kw = dict(seed=config.manual_seed, world_size=world, rank=rank)
         if config.thread_num > 0:
             self.loader = MultiWorkerLoader(
-                self.train_ds, config.batch_size, seed=config.manual_seed,
-                num_workers=config.thread_num)
+                self.train_ds, per_rank, num_workers=config.thread_num, **kw)
         else:
-            self.loader = TrainLoader(self.train_ds, config.batch_size,
-                                      seed=config.manual_seed)
+            self.loader = TrainLoader(self.train_ds, per_rank, **kw)
+        # the smallest shard's batches: every rank takes as many steps
+        self.n_batches = (len(self.train_ds) // world) // per_rank
         self.ckpt = CkptManager(
             os.path.join(config.log_dir, "checkpoint", "train", "epoch"),
             config.mode, max_files_to_keep=config.max_ckpt_num)
-        Path(config.log_dir).mkdir(parents=True, exist_ok=True)
-        save_config(config, os.path.join(config.log_dir, "config",
-                                         "config.json"))
-        self._snapshot_sources()
-        write_cost_report(os.path.join(config.log_dir, "cost.txt"),
-                          self.trainer.net)
+        if self.is_main:
+            Path(config.log_dir).mkdir(parents=True, exist_ok=True)
+            save_config(config, os.path.join(config.log_dir, "config",
+                                             "config.json"))
+            self._snapshot_sources()
+            write_cost_report(os.path.join(config.log_dir, "cost.txt"),
+                              self.trainer.net)
         self._tb = None
         self.epoch0 = 0
 
@@ -93,8 +109,17 @@ class Runner:
         for mod in (m_refvsr, m_ir, m_trainer):
             shutil.copy2(mod.__file__, dst / os.path.basename(mod.__file__))
 
+    class _NullWriter:
+        def add_scalar(self, *a, **k):
+            pass
+
+        def close(self):
+            pass
+
     @property
     def tb(self):
+        if self._tb is None and not self.is_main:
+            self._tb = Runner._NullWriter()
         if self._tb is None:
             self._tb = EventWriter(os.path.join(self.config.log_dir, "log",
                                                 "train", "scalar"))
@@ -120,7 +145,10 @@ class Runner:
                 dst.copy_(src)
         opt.step = int(state["step"])
         self.epoch0 = int(state["epoch"]) + 1
-        self.ckpt.resume_prune(epoch)
+        # every rank has read the checkpoint before rank 0 prunes the list
+        mesh.barrier(self.device)
+        if self.is_main:
+            self.ckpt.resume_prune(epoch)
 
     def resume_abs(self, path: str):
         """Start from the network weights at `path` (a checkpoint of this
@@ -142,7 +170,7 @@ class Runner:
         cfg = self.config
         tr = self.trainer
         total_itr = max_itr or cfg.total_itr
-        itr_per_epoch = max(1, len(self.loader) * cfg.frame_itr_num)
+        itr_per_epoch = max(1, self.n_batches * cfg.frame_itr_num)
         n_epochs = max_epochs or max(1, -(-total_itr // itr_per_epoch))
 
         for epoch in range(self.epoch0, n_epochs):
@@ -151,12 +179,15 @@ class Runner:
             train_errs, n_batches = {}, 0
             t_batch = time.time()
             for batch in prefetch(self.loader, depth=2):
+                if n_batches == self.n_batches:
+                    break
                 errs, _ = tr.iteration(batch)
                 n_batches += 1
                 for k, v in errs.items():
                     train_errs[k] = train_errs.get(k, 0.0) + v
                 itr = tr.opt.step
-                if itr % max(1, cfg.write_log_every_itr_train) < \
+                if self.is_main and itr % max(
+                        1, cfg.write_log_every_itr_train) < \
                         cfg.frame_itr_num:
                     print_status(format_train_line(
                         cfg.mode, epoch, itr, itr_per_epoch, errs,
@@ -176,14 +207,16 @@ class Runner:
                     tr.opt.step >= total_itr:
                 val_psnr = self.validate()
                 self.tb.add_scalar("valid_epoch/PSNR", val_psnr, epoch)
-                self.ckpt.save(
-                    {k: v.detach().cpu()
-                     for k, v in tr.net.state_dict().items()},
-                    self._train_state(epoch), epoch, val_psnr)
-            end_status()
-            print(f"[epoch {epoch}] itr={tr.opt.step} "
-                  f"{ {k: round(v, 5) for k, v in train_errs.items()} } "
-                  f"({time.time() - t0:.1f}s)")
+                if self.is_main:
+                    self.ckpt.save(
+                        {k: v.detach().cpu()
+                         for k, v in tr.net.state_dict().items()},
+                        self._train_state(epoch), epoch, val_psnr)
+            if self.is_main:
+                end_status()
+                print(f"[epoch {epoch}] itr={tr.opt.step} "
+                      f"{ {k: round(v, 5) for k, v in train_errs.items()} } "
+                      f"({time.time() - t0:.1f}s)")
             if tr.opt.step >= total_itr:
                 break
         return tr
@@ -269,7 +302,7 @@ class Runner:
                                       item["is_first"])
             gt = item["HR_UW"][t // 2]
             out = sr[0]
-            if cfg.save_sample and i < 4:
+            if cfg.save_sample and i < 4 and self.is_main:
                 self._save_samples(i, item, out, gt, conf, t)
             if cfg.flag_HD_in:
                 out = np.clip(np_resize(out, scale_factor=1 / cfg.scale,

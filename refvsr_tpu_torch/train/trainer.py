@@ -22,6 +22,15 @@ Semantics kept from the JAX package:
 - the pretrained SPyNet and VGG19 are loaded from ``config.spynet_ckpt``
   and ``config.vgg19_ckpt`` when the files exist, with a loud warning when
   they do not (``utils/convert.load_pretrained_assets``);
+- data parallelism (a process group of more than one rank, each on its
+  own share of the batch): the parameters are broadcast from rank 0 once,
+  and every window's gradients, with the errors that are logged, are
+  averaged over the ranks in one flattened bucket before the update, the
+  psum the JAX mesh inserts (the PSNR through its MSE, which is the
+  batch mean); the contextual loss's channel mean, which
+  couples the batch items, runs over every rank's batch
+  (``parallel.mesh.batch_mean``), so the averaged gradients are the whole
+  batch's;
 - ``is_amp`` is the bf16 policy: the network runs in bf16 on bf16 copies
   of its f32 parameters, cast inside the graph (``torch.func.
   functional_call``), so the gradients reach the f32 masters; the window's
@@ -43,6 +52,7 @@ from refvsr_tpu_torch.losses import LossModule
 from refvsr_tpu_torch.models.blocks import init_weights
 from refvsr_tpu_torch.models.refvsr import build_refvsr, init_stream_state
 from refvsr_tpu_torch.models.refvsr_ir import sliding_keyframe_mask
+from refvsr_tpu_torch.parallel import mesh
 from refvsr_tpu_torch.train import schedule as schedules
 from refvsr_tpu_torch.utils.convert import load_pretrained_assets
 
@@ -82,6 +92,11 @@ class ClippedAdam:
         return norm
 
 
+def _psnr_to_mse(p):
+    """The MSE of a PSNR against peak 1 (``losses.psnr``)."""
+    return torch.pow(10.0, -p / 10.0)
+
+
 class Trainer:
     """Holds the network, the loss module and the optimizer state of one
     training run (RefVSR or RefVSR-IR). ``device`` is the card unless the
@@ -108,6 +123,9 @@ class Trainer:
         self.assets = load_pretrained_assets(config, self.net, self.loss_mod)
         self.schedule = schedules.from_config(config)
         self.params = [p for p in self.net.parameters() if p.requires_grad]
+        # seeded init already agrees across ranks; rank 0's values win
+        mesh.broadcast_(list(self.net.parameters())
+                        + list(self.loss_mod.parameters()))
         self.opt = ClippedAdam(self.params, config.gc, config.beta1,
                                self.schedule)
 
@@ -130,10 +148,37 @@ class Trainer:
             cast = {k: p.to(cdt) for k, p in self.net.named_parameters()}
             out, new_state = torch.func.functional_call(
                 self.net, cast, (lrs.to(cdt), refs.to(cdt), state, *kf))
-        errs = self.loss_mod(out.float(), hr, ref_frames)
-        grads = torch.autograd.grad(errs["total"], self.params,
-                                    allow_unused=True)
+        with mesh.sync_batch_stats():
+            errs = self.loss_mod(out.float(), hr, ref_frames)
+            grads = torch.autograd.grad(errs["total"], self.params,
+                                        allow_unused=True)
         return errs, out, new_state, grads
+
+    def average(self, grads, errs):
+        """The ranks' mean of `grads` (a tensor or None per parameter) and
+        of the errors, by one all-reduce in the order of ``self.params``;
+        the errors come back detached. One rank returns its inputs. Raises
+        if the ranks disagree on which gradients are None."""
+        if mesh.world_size() == 1:
+            return grads, errs
+        keys = sorted(errs)
+        have = [g for g in grads if g is not None]
+        flags = torch.tensor([g is not None for g in grads],
+                             dtype=torch.float32, device=self.device)
+        # the PSNR is not a mean over the batch; its MSE is
+        vals = torch.stack([_psnr_to_mse(errs[k].detach().float())
+                            if k == "PSNR" else errs[k].detach().float()
+                            for k in keys])
+        red = mesh.all_reduce_mean(have + [flags, vals])
+        if not bool(((red[-2] == 0) | (red[-2] == 1)).all()):
+            raise RuntimeError("the ranks disagree on which parameters "
+                               "have gradients")
+        it = iter(red[:-2])
+        grads = [None if g is None else next(it) for g in grads]
+        errs = dict(zip(keys, red[-1].unbind()))
+        if "PSNR" in errs:
+            errs["PSNR"] = -10.0 * torch.log10(errs["PSNR"])
+        return grads, errs
 
     # ---------------- one window ----------------
 
@@ -144,6 +189,7 @@ class Trainer:
         the new detached state)."""
         errs, _, new_state, grads = self.gradients(state, lrs, refs, hr,
                                                    ref_frames, keyframe_mask)
+        grads, errs = self.average(grads, errs)
         self.opt.update(grads)
         return {k: v.detach().float() for k, v in errs.items()}, new_state
 

@@ -98,6 +98,14 @@ def _port_files():
     return files + [ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py"]
 
 
+def test_port_files_include_the_multi_device_modules():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"refvsr_tpu_torch/parallel/__init__.py",
+            "refvsr_tpu_torch/parallel/mesh.py",
+            "refvsr_tpu_torch/parallel/spatial.py",
+            "refvsr_tpu_torch/parallel/serve.py"} <= names
+
+
 def test_port_files_include_the_serving_slice():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"refvsr_tpu_torch/data/png.py",

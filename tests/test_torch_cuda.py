@@ -41,6 +41,14 @@ the ``Predictor`` on the card against its CPU run of the same seeded
 weights, both in f32 with TF32 off, within the 1e-3 that ``chip_smoke.py``
 allows the stream's card-vs-CPU check.
 
+Multi-device: the banded K1 kernel (the H-sharded stream's warp) against
+its plain version on the 8K feature and UP bands at N = 2 and 4 (first,
+interior and last band, flows past the halo, dead points; tolerances as
+K1's), the banded launcher on the trivial band bit-equal to the unbanded
+one (one kernel serves both), and two gloo
+ranks on one card running the port's collectives on CUDA tensors
+(values exact).
+
 RefVSR-IR and the eval CLI: the plain deformable convolution on the card
 against the CPU within 1e-5 of the largest output (f32, TF32 off); a tiny
 IR net's windows on the card against the CPU within 1e-3, with the
@@ -754,3 +762,115 @@ def test_jpeg_and_inferno_round_trip():
     np.testing.assert_array_equal(rgb[[0, 2]], INFERNO[[0, 255]])
     np.testing.assert_array_equal(rgb[1], INFERNO[128])
     assert not rgb[3].any()
+
+
+# ---------------------------------------------------------------------------
+# multi-device: the banded K1 kernel and gloo collectives on one card
+# ---------------------------------------------------------------------------
+
+def _band_case(x, flow, world, rank, halo):
+    """The banded warp's arguments for `rank`'s band of the whole x and
+    flow (zeros past the image), as parallel/spatial.sharded_warp forms
+    them."""
+    from refvsr_tpu_torch.parallel.mesh import part
+    n, h, w, c = x.shape
+    ho = flow.shape[1]
+    s, e = part(h, world, rank)
+    a, b = s - halo, e + halo
+    xe = x.new_zeros((n, b - a, w, c))
+    lo_src, hi_src = max(a, 0), min(b, h)
+    xe[:, lo_src - a:hi_src - a] = x[:, lo_src:hi_src]
+    oy0, oy1 = part(ho, world, rank)
+    return (xe, flow[:, oy0:oy1].contiguous(), h, ho, oy0, a,
+            -1 if rank == 0 else 0, b - a - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["feat", "up"])
+@pytest.mark.parametrize("world,rank", [(2, 0), (2, 1), (4, 0), (4, 2),
+                                        (4, 3)])
+def test_banded_warp_kernel_matches_plain(cuda_device, dtype, shape, world,
+                                          rank):
+    """The 8K stream's bands (halo 32): the feature warp (C = 49, 1080
+    rows onto 1080) and the UP warp (C = 48, 2160 rows onto 2160), on the
+    first, an interior and the last band at N = 2 and 4, with a smooth
+    flow of +-6 px, rows whose flow reaches past the halo (+-40 px, where
+    the band border-extends), and dead points."""
+    from refvsr_tpu_torch.ops.kernels.warp_sample import (
+        warp_sample_banded, warp_sample_banded_plain)
+    g = torch.Generator(device=cuda_device).manual_seed(7 + rank)
+    h, w, c = (1080, 1920, 49) if shape == "feat" else (2160, 3840, 48)
+    x = torch.randn((1, h, w, c), generator=g, device=cuda_device).to(dtype)
+    flow = (torch.rand((1, h, w, 2), generator=g, device=cuda_device) * 12
+            - 6)
+    flow[:, ::97, :, 1] += 40.0
+    flow[:, 5::89, :, 1] -= 40.0
+    flow[:, :8, :16] += 1e4
+    flow = flow.to(dtype)
+    args = _band_case(x, flow, world, rank, 32)
+    before = warp_sample_banded.launches
+    got = warp_sample_banded(*args)
+    assert warp_sample_banded.launches == before + 1
+    want = warp_sample_banded_plain(*args)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(
+        x.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,up", [(49, False), (48, True), (5, False)])
+def test_banded_warp_kernel_trivial_band_is_the_unbanded_kernel(
+        gen, cuda_device, dtype, c, up):
+    from refvsr_tpu_torch.ops.kernels.warp_sample import warp_sample_banded
+    h, w = 61, 97
+    ho, wo = (2 * h, 2 * w) if up else (h, w)
+    x = torch.from_numpy(gen.standard_normal((2, h, w, c)).astype(
+        np.float32)).to(cuda_device, dtype)
+    flow = gen.uniform(-8, 8, (2, ho, wo, 2)).astype(np.float32)
+    flow[:, :3, :5] += 5000.0
+    flow[gen.random((2, ho, wo)) < 0.02, 1] = np.nan
+    flow = torch.from_numpy(flow).to(cuda_device, dtype)
+    got = warp_sample_banded(x, flow, h, ho, 0, 0, -1, h - 1)
+    assert torch.equal(got, warp_sample(x, flow))
+
+
+def _gloo_rank(out_dir):
+    os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    from refvsr_tpu_torch.parallel import mesh, spatial
+    backend = mesh.init_from_env("cuda")
+    try:
+        r, dev = mesh.rank(), mesh.device_for_rank("cuda")
+        x = torch.arange(12, dtype=torch.float32, device=dev).reshape(
+            1, 6, 2, 1) + 100 * r
+        got = {"backend": backend, "device": str(dev)}
+        got["gather"] = mesh.all_gather_rows(x, 1).cpu()
+        got["mean"] = mesh.all_reduce_mean([x.clone()])[0].cpu()
+        b = x.clone()
+        mesh.broadcast_([b])
+        got["broadcast"] = b.cpu()
+        with spatial.spatial_sharding(2, [12]):
+            got["halo"] = spatial.halo_exchange_rows(x, 2).cpu()
+        torch.save(got, os.path.join(out_dir, f"gloo{r}.pt"))
+    finally:
+        mesh.destroy()
+
+
+@pytest.mark.cuda
+def test_gloo_collectives_on_cuda_tensors_of_one_card(cuda_device, tmp_path):
+    """Two ranks on one card form a gloo group (each rank's device is
+    cuda:0) and run every collective the port uses on CUDA tensors."""
+    from refvsr_tpu_torch.parallel import mesh
+    mesh.spawn(_gloo_rank, (str(tmp_path),), 2, 120)
+    r0, r1 = (torch.load(str(tmp_path / f"gloo{r}.pt")) for r in (0, 1))
+    x0 = torch.arange(12, dtype=torch.float32).reshape(1, 6, 2, 1)
+    x1 = x0 + 100
+    for r in (r0, r1):
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert torch.equal(r["gather"], torch.cat([x0, x1], 1))
+        assert torch.equal(r["mean"], x0 + 50)
+        assert torch.equal(r["broadcast"], x0)
+    z = torch.zeros(1, 2, 2, 1)
+    assert torch.equal(r0["halo"], torch.cat([z, x0, x1[:, :2]], 1))
+    assert torch.equal(r1["halo"], torch.cat([x0[:, -2:], x1, z], 1))

@@ -262,14 +262,22 @@ def test_cli_writes_the_jax_log_tree(runs, fake_dataset, tmp_path,
     assert any(f.endswith("checkpoints.txt") for f in want)
 
 
-@pytest.mark.parametrize("args,what", [
-    (["--is_train", "--devices", "2"], "item 7"),
-    (["--is_train", "--spatial_devices", "4"], "item 7"),
-    (["--devices", "2"], "item 7")])
-def test_cli_refuses_what_is_not_ported(args, what):
+@pytest.mark.parametrize("args,env,what", [
+    (["--is_train", "--devices", "3", "-b", "2"], {}, "not divisible"),
+    (["--spatial_devices", "4"], {"WORLD_SIZE": "2"}, "disagrees with"),
+    (["--spatial_devices", "2", "--spatial_halo", "1000", "--config",
+      "config_RefVSR_MFID"], {}, "< halo 1000")])
+def test_cli_refuses_what_is_not_ported(args, env, what, fake_dataset,
+                                        monkeypatch):
+    """What the multi-device command line refuses before any rank runs: a
+    batch the ranks cannot split, a flag that disagrees with torchrun's
+    rank count, and a frame geometry the spatial set-up rejects."""
     from refvsr_tpu_torch import run
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     with pytest.raises(SystemExit, match=what):
-        run.main(args)
+        run.main(args + ["-cpu", "--data_offset", fake_dataset])
 
 
 def test_ir_network_is_refused():
