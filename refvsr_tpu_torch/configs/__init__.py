@@ -6,9 +6,10 @@ overrides -> derived data paths (``set_data_path``). A training run writes
 its config as ``config.json`` (``save_config``), which ``load_config``
 reads back, from either package.
 
-Fields that act only where the port has no counterpart yet are kept so that
-a ``config.json`` round-trips: ``spatial_devices``/``spatial_halo`` (values
-above 1 are refused by ``run.main``, ROADMAP Queue 1, item 7)."""
+``spatial_devices``/``spatial_halo`` act in evaluation only, as in the JAX
+package: above 1, ``run.main`` streams each frame H-sharded over that many
+ranks, each with ``spatial_halo`` rows of its neighbours
+(``parallel/serve.py``); training ignores them."""
 
 from __future__ import annotations
 
@@ -62,8 +63,8 @@ class Config:
     resume_abs: Optional[str] = None
     note: Optional[str] = None
 
-    # multi-chip spatial serving of the JAX package; kept for config.json
-    # round trips, refused above 1 (ROADMAP Queue 1, item 7)
+    # spatial serving (evaluation only): each frame's rows split over
+    # spatial_devices ranks, spatial_halo rows of overlap at each seam
     spatial_devices: int = 1
     spatial_halo: int = 32
 

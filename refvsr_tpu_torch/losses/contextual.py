@@ -11,7 +11,9 @@
 The features, the distance matrix and the -log reduction are f32. The
 distance product is a plain ``torch.matmul`` (the JAX package leaves it to
 XLA, outside any Pallas kernel). The min and max reductions use
-``amin``/``amax``, whose gradients split ties evenly, as JAX's do."""
+``amin``/``amax``, whose gradients split ties evenly, as JAX's do; they sit
+in ``_nearest`` and ``_best``, which ``chip_smoke.py`` replaces to hold the
+choices of one run to another's."""
 
 from __future__ import annotations
 
@@ -69,8 +71,19 @@ def _meshgrid_dist(n, h, w, device):
     return torch.as_tensor(d2, device=device).expand(n, *d2.shape)
 
 
+def _nearest(dist):
+    """Each x position's smallest distance over y, (N, HWx, 1)."""
+    return dist.amin(dim=2, keepdim=True)
+
+
+def _best(cx):
+    """Each y position's largest similarity over x and that x (the
+    per-position picks), each (N, HWy)."""
+    return cx.amax(dim=1), cx.argmax(dim=1)
+
+
 def _cx_weights(dist, band_width):
-    dist_t = dist / (dist.amin(dim=2, keepdim=True) + 1e-5)
+    dist_t = dist / (_nearest(dist) + 1e-5)
     w = torch.exp((1.0 - dist_t) / band_width)
     return w / (w.sum(dim=2, keepdim=True) + 1e-5)
 
@@ -102,8 +115,7 @@ def cx_core(x_feat, y_feat, band_width: float, x_self_mu: bool,
                               x_feat.device)
         cx = ((1.0 - _COBI_WEIGHT_SP) * cx
               + _COBI_WEIGHT_SP * _cx_weights(d_sp, band_width))
-    r_val = cx.amax(dim=1)                           # (N, HWy)
-    r_idx = cx.argmax(dim=1)
+    r_val, r_idx = _best(cx)                         # (N, HWy)
     sim = torch.exp((1.0 - dist) / 0.5)
     c_map = torch.gather(sim, 1, r_idx[:, None, :])[:, 0, :]
     cx_agg = (r_val * c_map).sum(dim=1) / c_map.sum(dim=1)

@@ -106,6 +106,12 @@ def test_port_files_include_the_multi_device_modules():
             "refvsr_tpu_torch/parallel/serve.py"} <= names
 
 
+def test_port_files_include_the_bench_and_parity_modules():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"refvsr_tpu_torch/bench/e2e.py",
+            "refvsr_tpu_torch/eval/parity_check.py"} <= names
+
+
 def test_port_files_include_the_serving_slice():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"refvsr_tpu_torch/data/png.py",

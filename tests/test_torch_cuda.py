@@ -49,6 +49,9 @@ one (one kernel serves both), and two gloo
 ranks on one card running the port's collectives on CUDA tensors
 (values exact).
 
+The bench's stream leg at a small size, plain and pipelined: its record
+and the kernels' launches a window or dispatch.
+
 RefVSR-IR and the eval CLI: the plain deformable convolution on the card
 against the CPU within 1e-5 of the largest output (f32, TF32 off); a tiny
 IR net's windows on the card against the CPU within 1e-3, with the
@@ -742,6 +745,27 @@ def test_ir_window_card_matches_cpu(cuda_device):
             2 * t + 2 + 3 * (t // 2), 1)
         assert got.shape == (1, 120, 168, 3)
         assert float(np.abs(got - want).max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,launches", [(0, (10, 1)), (2, (6, 1))])
+def test_bench_stream_leg_on_the_card(cuda_device, lanes, launches):
+    """The bench's stream leg (``bench/e2e.run_stream``: RefVSR_MFID_8K at
+    full width, bf16, seeded) at a small size on the card: its record
+    names the 8K-equivalent metric, counts K1 and K2 launches of a timed
+    window (10 and 1) or pipelined dispatch (6 and 1), reports a peak and
+    the card, and its numerics gate passes."""
+    from refvsr_tpu_torch.bench import e2e
+    res = e2e.run_stream(64, 128, lanes=lanes, device="cuda", warmup=1,
+                         iters=2)
+    rec = res.record
+    assert rec["metric"] == "stream_fps_8k_equiv" and rec["unit"] == "fps"
+    assert rec["out_shape"] == [1, 256, 512, 3] and rec["lanes"] == lanes
+    assert (rec["k1_launches"], rec["k2_launches"]) == launches
+    assert rec["value"] > 0 and rec["peak_bytes"] > 0
+    assert rec["card"] and rec["card"] != "cpu"
+    assert len(rec["window_ms"]) == 2 and res.out.is_cuda
+    assert res.out.dtype == torch.bfloat16
 
 
 def test_jpeg_and_inferno_round_trip():
