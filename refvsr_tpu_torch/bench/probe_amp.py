@@ -179,14 +179,16 @@ def rel_l2(a, b):
     return float((a - b).norm()) / den if den > 0 else float(a.norm())
 
 
-def compare(dev, data_seed=14, weight_seed=3):
-    """The window on the CPU, on `dev` and on `dev` with the plain versions
-    held to its choices. Returns {losses: {k: (card, CPU)}, flipped: (picks
+def compare(dev, data_seed=14, weight_seed=3, cpu=None):
+    """The window on the CPU (`cpu`: its amp_window, when already made),
+    on `dev` and on `dev` with the plain versions held to its choices.
+    Returns {losses: {k: (card, CPU)}, flipped: (picks
     the card made otherwise than the CPU, picks), vs_cpu: {tensor: relative
     L2 of the card's gradient against the CPU's}, overall: that over all
     trained tensors as one vector, vs_plain: {tensor: relative L2 of the
     card's gradient against the plain versions'}}."""
-    errs_c, grads_c, seen_c = amp_window("cpu", data_seed, weight_seed)
+    errs_c, grads_c, seen_c = cpu or amp_window("cpu", data_seed,
+                                                weight_seed)
     with cudnn_deterministic():
         errs_g, grads_g, seen_g = amp_window(dev, data_seed, weight_seed)
         with plain_kernels():

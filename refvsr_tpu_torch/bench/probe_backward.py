@@ -32,12 +32,11 @@ import ctypes
 import json
 import subprocess
 import sys
-import time
 
 import torch
 import torch.nn.functional as F
 
-from refvsr_tpu_torch.bench import device_kernels
+from refvsr_tpu_torch.bench import device_kernels, host_us
 from refvsr_tpu_torch.ops.kernels import build
 from refvsr_tpu_torch.ops.kernels import argmax_matmul as k2
 from refvsr_tpu_torch.ops.kernels import warp_sample as k1
@@ -131,18 +130,6 @@ def _variant_sources() -> dict:
 def _device_ms(call, tag, reps=20):
     return sum(ms for name, ms, _ in device_kernels(
         lambda: [call() for _ in range(reps)]) if tag in name) / reps
-
-
-def _host_us(fn, reps=2000):
-    for _ in range(50):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    return us
 
 
 def k1_variants(libs, dev, rounds=2):
@@ -253,7 +240,8 @@ def host_pieces(dev):
         "index_select": lambda: ref.reshape(-1, 144).index_select(0, rows),
         "index_add_": lambda: acc.index_add_(0, rows, lr.reshape(-1, 144)),
     }
-    return {name: _host_us(fn) for name, fn in pieces.items()}
+    return {name: host_us(fn, reps=2000, rounds=1, warmup=50)
+            for name, fn in pieces.items()}
 
 
 def main():
