@@ -23,7 +23,13 @@ Spatial sharding (``spatial``, from ``parallel/serve.spatial_eval_fns``):
 every rank of the group runs the runner on the same windows; the windows
 go through the spatial functions, which place each rank's rows, run the
 net under the shard-local ops and gather the SR frame and the confidence
-maps on every rank. Plain mode only, as in the JAX package."""
+maps on every rank. Plain mode only, as in the JAX package.
+
+Spans (``utils/trace.py``): under a profiler session every net call of
+the runner is one frame, a device span named ``refvsr.runner.first`` (a
+clip's first window), ``refvsr.runner.reanchor`` (``forward_first`` again
+after ``reset_branch`` windows) or ``refvsr.runner.stream`` (a streamed,
+priming or flushing dispatch); the network's stage spans nest inside it."""
 
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from refvsr_tpu_torch import resolve_device
+from refvsr_tpu_torch.utils import trace
 
 
 class StreamRunner:
@@ -102,10 +109,11 @@ class StreamRunner:
         if self.pipeline_lanes > 1:
             raise RuntimeError("the runner is pipelined: use submit() and "
                                "flush()")
-        if self.reset_branch is not None and self.count == self.reset_branch:
-            is_first = True
+        kind = ("first" if is_first or self.state is None else
+                "reanchor" if self.reset_branch is not None
+                and self.count == self.reset_branch else "stream")
         lrs, refs = self._as_input(lrs), self._as_input(refs)
-        first = is_first or self.state is None
+        first = kind != "stream"
         kf = ()
         if self.keyframe_stride is not None:
             from refvsr_tpu_torch.models.refvsr_ir import \
@@ -121,7 +129,7 @@ class StreamRunner:
                                                   self.net),
                                 functools.partial(self.spatial.stream,
                                                   self.net)))
-        with torch.inference_mode():
+        with torch.inference_mode(), trace.frame(kind, lrs):
             if first:
                 out, self.state, conf = first_fn(lrs, refs, *kf)
                 self.count = 0
@@ -150,6 +158,7 @@ class StreamRunner:
             emitted.extend(self.flush())    # the previous video's tail
         lrs, refs = self._as_input(lrs), self._as_input(refs)
         net = self.net
+        first_kind = "first"
         with torch.inference_mode():
             if (not is_first and self.reset_branch is not None
                     and self.count == self.reset_branch):
@@ -159,22 +168,28 @@ class StreamRunner:
                 # window serves two outputs, each as the plain stream
                 # computes it
                 if self._pending:
-                    out, self.state, conf = net.forward_stream_pipelined(
-                        lrs, refs, self.state)
+                    with trace.frame("stream", lrs):
+                        out, self.state, conf = net.forward_stream_pipelined(
+                            lrs, refs, self.state)
                     emitted.append((self._pending.pop(0), out, conf))
                 is_first = True
+                first_kind = "reanchor"
             if is_first or self.state is None:
-                out, self.state, conf = net.forward_first(lrs, refs)
+                with trace.frame(first_kind, lrs):
+                    out, self.state, conf = net.forward_first(lrs, refs)
                 emitted.append((meta, out, conf))
                 self.count = 0
                 self._primes_left = self.pipeline_lanes - 1
             elif self._primes_left > 0:
-                self.state = net.forward_stream_prime(lrs, refs, self.state)
+                with trace.frame("stream", lrs):
+                    self.state = net.forward_stream_prime(lrs, refs,
+                                                          self.state)
                 self._pending.append(meta)
                 self._primes_left -= 1
             else:
-                out, self.state, conf = net.forward_stream_pipelined(
-                    lrs, refs, self.state)
+                with trace.frame("stream", lrs):
+                    out, self.state, conf = net.forward_stream_pipelined(
+                        lrs, refs, self.state)
                 self._pending.append(meta)
                 emitted.append((self._pending.pop(0), out, conf))
         self.count += 1
@@ -189,12 +204,14 @@ class StreamRunner:
         if not self._pending:
             return emitted
         lrs, refs = self._last_win
+        net = self.net
         with torch.inference_mode():
             while self._pending:
                 lrs = torch.cat([lrs[:, 1:], lrs[:, -1:]], 1)
                 refs = torch.cat([refs[:, 1:], refs[:, -1:]], 1)
-                out, self.state, conf = self.net.forward_stream_pipelined(
-                    lrs, refs, self.state)
+                with trace.frame("stream", lrs):
+                    out, self.state, conf = net.forward_stream_pipelined(
+                        lrs, refs, self.state)
                 emitted.append((self._pending.pop(0), out, conf))
                 self.count += 1
         self._last_win = (lrs, refs)

@@ -16,13 +16,15 @@ import torch.nn.functional as F
 
 from refvsr_tpu_torch.ops.image import pixel_shuffle
 from refvsr_tpu_torch.parallel import spatial
+from refvsr_tpu_torch.utils import trace
 
 
 class Conv2d(nn.Conv2d):
     """torch Conv2d on NHWC tensors: square kernel, padding k//2, bias.
     Parameters are the usual OIHW ``weight`` and ``bias``. Under an active
     spatial context the input is this rank's band of rows
-    (``parallel/spatial.conv2d``)."""
+    (``parallel/spatial.conv2d``). Under a profiler session each call is
+    the span ``refvsr.conv`` (``utils/trace.py``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1):
@@ -30,10 +32,12 @@ class Conv2d(nn.Conv2d):
                          kernel_size // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ctx = spatial.active()
-        if ctx is not None:
-            return spatial.conv2d(ctx, self, x)
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        with trace.span("refvsr.conv"):
+            ctx = spatial.active()
+            if ctx is not None:
+                return spatial.conv2d(ctx, self, x)
+            y = super().forward(x.permute(0, 3, 1, 2))
+            return y.permute(0, 2, 3, 1)
 
 
 def lrelu(x, slope):

@@ -37,7 +37,16 @@ forward step) and 16 per ``forward_first`` at T = 7. Every matching goes
 through kernel K2: one batch-T launch per ``forward_first`` and one batch-1
 launch per ``forward_stream``. A pipelined dispatch at L = 2, T = 7 runs 6
 warps (two sub-steps of batch 2, then the forward step; 4 when priming) and
-one batch-1 matching."""
+one batch-1 matching.
+
+Under a profiler session the five stages are device spans
+(``utils/trace.py``): ``refvsr.net.flows`` (``compute_flows``,
+``_shift_cached_flows``), ``refvsr.net.matching`` (``compute_matching``:
+VGG features, patches, K2), ``refvsr.net.aligned`` (``compute_aligned``;
+inside ``refvsr.net.prop`` on the uncached path), ``refvsr.net.prop``
+(``_prop_step``: the two K1 warps, the resblock chain, RAP) and
+``refvsr.net.up`` (``_finalize``: the bicubic base, ``compute_up``, the
+tail)."""
 
 from __future__ import annotations
 
@@ -58,6 +67,7 @@ from refvsr_tpu_torch.models.spynet import SPyNet
 from refvsr_tpu_torch.ops.resize import resize
 from refvsr_tpu_torch.ops.warp import warp
 from refvsr_tpu_torch.parallel import spatial
+from refvsr_tpu_torch.utils import trace
 
 
 @dataclass
@@ -213,26 +223,29 @@ class RefVSRNet(nn.Module):
         """lrs (N, T, H, W, 3) -> (forward_flows, backward_flows), each
         (N, T-1, H, W, 2); one SPyNet call per frame pair, or zeros
         without SPyNet under zero_flow (RefVSR.py:183-191)."""
-        if self.zero_flow:
-            n, t, h, w = lrs.shape[:4]
-            z = lrs.new_zeros((n, t - 1, h, w, 2))
-            return z, z
+        with trace.span("refvsr.net.flows", lrs):
+            if self.zero_flow:
+                n, t, h, w = lrs.shape[:4]
+                z = lrs.new_zeros((n, t - 1, h, w, 2))
+                return z, z
 
-        def flows(lrs):
-            fwd = [self.FlowNet(lrs[:, j + 1], lrs[:, j])   # RefVSR.py:184
-                   for j in range(lrs.shape[1] - 1)]
-            bwd = [self.FlowNet(lrs[:, j], lrs[:, j + 1])   # RefVSR.py:189
-                   for j in range(lrs.shape[1] - 1)]
-            return torch.stack(fwd, 1), torch.stack(bwd, 1)
-        # SPyNet's /32 pyramid has no integer-ratio band: replicated
-        return replicated_rows(flows, lrs, dim=2)
+            def flows(lrs):
+                fwd = [self.FlowNet(lrs[:, j + 1], lrs[:, j])  # RefVSR.py:184
+                       for j in range(lrs.shape[1] - 1)]
+                bwd = [self.FlowNet(lrs[:, j], lrs[:, j + 1])  # RefVSR.py:189
+                       for j in range(lrs.shape[1] - 1)]
+                return torch.stack(fwd, 1), torch.stack(bwd, 1)
+            # SPyNet's /32 pyramid has no integer-ratio band: replicated
+            return replicated_rows(flows, lrs, dim=2)
 
     def compute_matching(self, lrs, refs):
         """Batched per-frame matching: lrs (N, T, h, w, 3), refs
         (N, T, hr, wr, 3) -> conf (N, T, h, w, 1), index (N, T, h*w)."""
         n, t = lrs.shape[:2]
-        conf, index = self.feature_match(lrs.reshape(n * t, *lrs.shape[2:]),
-                                         refs.reshape(n * t, *refs.shape[2:]))
+        with trace.span("refvsr.net.matching", lrs):
+            conf, index = self.feature_match(
+                lrs.reshape(n * t, *lrs.shape[2:]),
+                refs.reshape(n * t, *refs.shape[2:]))
         return (conf.reshape(n, t, *conf.shape[1:]),
                 index.reshape(n, t, *index.shape[1:]))
 
@@ -243,10 +256,12 @@ class RefVSRNet(nn.Module):
     def compute_aligned(self, lr, ref, index):
         """The carry-independent half of RAP (encode the ref, align it at
         both levels by the index map); cached per tail frame in streaming."""
-        lr_down = resize(lr, scale_factor=0.5, mode="bicubic").clamp(0.0, 1.0)
-        ref_feat, ref_feat_down = self.encode_ref(ref)
-        return (self.aa1(lr_down, ref, index, ref_feat_down),
-                self.aa2(lr, ref, index, ref_feat))
+        with trace.span("refvsr.net.aligned", lr):
+            lr_down = resize(lr, scale_factor=0.5,
+                             mode="bicubic").clamp(0.0, 1.0)
+            ref_feat, ref_feat_down = self.encode_ref(ref)
+            return (self.aa1(lr_down, ref, index, ref_feat_down),
+                    self.aa2(lr, ref, index, ref_feat))
 
     def compute_aligned_scan(self, lrs, refs, indices, front: int = 0):
         """compute_aligned for each frame of a (N, T, ...) window, one frame
@@ -286,26 +301,29 @@ class RefVSRNet(nn.Module):
         """One propagation step: warp -> aggregate -> RAP (RefVSR.py:214-276).
         x holds lr, conf, flow and either aligned/aligned_up (cached) or
         ref/index (computed here)."""
-        feat_prop, feat_prop_up, conf_prop = carry
-        mid = feat_prop.shape[-1]
-        # conf_prop rides the feature warp (same flow and grid): C = mid + 1
-        packed = warp(torch.cat([feat_prop, conf_prop], -1), x["flow"])
-        feat_prop, conf_prop = packed[..., :mid], packed[..., mid:]
-        # the reference reassigns feat_prop (RefVSR.py:252) before line 254
-        # reads it: the low-res UP source is the already-warped feat_prop
-        up_src = feat_prop if warp_up_from_low else feat_prop_up
-        feat_prop_up = warp(up_src, _flow_up2(x["flow"]))
+        with trace.span("refvsr.net.prop", x["lr"]):
+            feat_prop, feat_prop_up, conf_prop = carry
+            mid = feat_prop.shape[-1]
+            # conf_prop rides the feature warp (same flow and grid):
+            # C = mid + 1
+            packed = warp(torch.cat([feat_prop, conf_prop], -1), x["flow"])
+            feat_prop, conf_prop = packed[..., :mid], packed[..., mid:]
+            # the reference reassigns feat_prop (RefVSR.py:252) before line
+            # 254 reads it: the low-res UP source is the already-warped
+            # feat_prop
+            up_src = feat_prop if warp_up_from_low else feat_prop_up
+            feat_prop_up = warp(up_src, _flow_up2(x["flow"]))
 
-        resblocks = (self.backward_resblocks if branch == "backward"
-                     else self.forward_resblocks)
-        feat_prop = resblocks(torch.cat([x["lr"], feat_prop], -1))
-        if "aligned" in x:
-            aligned, aligned_up = x["aligned"], x["aligned_up"]
-        else:
-            aligned, aligned_up = self.compute_aligned(x["lr"], x["ref"],
-                                                       x["index"])
-        return self.rap(x["conf"], conf_prop, feat_prop, feat_prop_up,
-                        aligned, aligned_up)
+            resblocks = (self.backward_resblocks if branch == "backward"
+                         else self.forward_resblocks)
+            feat_prop = resblocks(torch.cat([x["lr"], feat_prop], -1))
+            if "aligned" in x:
+                aligned, aligned_up = x["aligned"], x["aligned_up"]
+            else:
+                aligned, aligned_up = self.compute_aligned(
+                    x["lr"], x["ref"], x["index"])
+            return self.rap(x["conf"], conf_prop, feat_prop, feat_prop_up,
+                            aligned, aligned_up)
 
     def _tail(self, out):
         """upsample2 -> conv_hr -> conv_last (RefVSR.py:114-118)."""
@@ -386,10 +404,11 @@ class RefVSRNet(nn.Module):
         return carry, carry0
 
     def _finalize(self, lr_center, bw_carry, fw_carry):
-        base = resize(lr_center, scale_factor=self.scale,
-                      mode="bicubic").clamp(0.0, 1.0)
-        return self.compute_up(bw_carry[1], fw_carry[1], bw_carry[2],
-                               fw_carry[2], base)
+        with trace.span("refvsr.net.up", lr_center):
+            base = resize(lr_center, scale_factor=self.scale,
+                          mode="bicubic").clamp(0.0, 1.0)
+            return self.compute_up(bw_carry[1], fw_carry[1], bw_carry[2],
+                                   fw_carry[2], base)
 
     # ---------------- entry points ----------------
 
@@ -476,10 +495,12 @@ class RefVSRNet(nn.Module):
         if self.zero_flow:
             return state.flows_fwd, state.flows_bwd
         last, prev = lrs[:, -1], lrs[:, -2]
-        new_fwd, new_bwd = replicated_rows(
-            lambda a, b: (self.FlowNet(a, b), self.FlowNet(b, a)), last, prev)
-        fwd = torch.cat([state.flows_fwd[:, 1:], new_fwd[:, None]], 1)
-        bwd = torch.cat([state.flows_bwd[:, 1:], new_bwd[:, None]], 1)
+        with trace.span("refvsr.net.flows", lrs):
+            new_fwd, new_bwd = replicated_rows(
+                lambda a, b: (self.FlowNet(a, b), self.FlowNet(b, a)), last,
+                prev)
+            fwd = torch.cat([state.flows_fwd[:, 1:], new_fwd[:, None]], 1)
+            bwd = torch.cat([state.flows_bwd[:, 1:], new_bwd[:, None]], 1)
         return fwd, bwd
 
     def _stream_tails(self, lrs, refs, state: StreamState):

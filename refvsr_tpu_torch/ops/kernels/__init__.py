@@ -11,4 +11,9 @@
 
 Each wrapper runs its plain version for CPU tensors only, launches its kernel
 for CUDA tensors (or raises), and counts launches in ``<wrapper>.launches``.
+Under a profiler session each forward call of K1 (``warp_sample``,
+``warp_sample_banded``) is the span ``refvsr.k1`` and each of K2 the span
+``refvsr.k2`` (``utils/trace.py``): the checks, the output's allocation and
+the launch, so that the host's time on the launch path has a name on the
+timeline.
 """

@@ -25,6 +25,9 @@ dtype; the int32 index has no gradient. With gradients on and either input
 requiring grad, ``argmax_matmul`` is recorded for autograd
 (``_ArgmaxMatmul``); its backward is the plain version (a gather and
 ``index_add_``) for CPU tensors and a CUDA kernel for CUDA tensors.
+
+Under a profiler session every forward call is the span ``refvsr.k2``
+(``utils/trace.py``), on either path.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import ctypes
 import torch
 
 from refvsr_tpu_torch.ops.kernels import build
+from refvsr_tpu_torch.utils import trace
 
 # the C launchers' arguments before the stream
 _FORWARD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -87,35 +91,40 @@ def argmax_matmul_backward_plain(ref_p: torch.Tensor, lr_p: torch.Tensor,
 
 
 def _forward(ref_p, lr_p):
-    if ref_p.device.type == "cpu":
-        return argmax_matmul_plain(ref_p, lr_p)
-    if ref_p.device.type != "cuda":
-        raise ValueError(f"unsupported device {ref_p.device}")
-    if ref_p.dtype not in _DTYPES:
-        raise TypeError(f"argmax_matmul takes f32/bf16, got {ref_p.dtype}")
-    n, l_ref, d = ref_p.shape
-    l_lr = lr_p.shape[1]
-    if l_ref == 0:
-        raise ValueError("argmax_matmul needs at least one ref row")
-    if d % 16 or d > _MAX_D[ref_p.dtype]:
-        # the path's patch vectors are 3x3x16 = 144 wide
-        raise ValueError(f"argmax_matmul needs D a multiple of 16 up to "
-                         f"{_MAX_D[ref_p.dtype]} in {ref_p.dtype}, got {d}")
-    for t in (ref_p, lr_p):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("argmax_matmul needs contiguous, 16-byte "
-                             "aligned inputs")
-    conf = torch.empty((n, l_lr), dtype=torch.float32, device=lr_p.device)
-    index = torch.empty((n, l_lr), dtype=torch.int32, device=lr_p.device)
-    if conf.numel() == 0:
+    with trace.span("refvsr.k2"):
+        if ref_p.device.type == "cpu":
+            return argmax_matmul_plain(ref_p, lr_p)
+        if ref_p.device.type != "cuda":
+            raise ValueError(f"unsupported device {ref_p.device}")
+        if ref_p.dtype not in _DTYPES:
+            raise TypeError(f"argmax_matmul takes f32/bf16, got "
+                            f"{ref_p.dtype}")
+        n, l_ref, d = ref_p.shape
+        l_lr = lr_p.shape[1]
+        if l_ref == 0:
+            raise ValueError("argmax_matmul needs at least one ref row")
+        if d % 16 or d > _MAX_D[ref_p.dtype]:
+            # the path's patch vectors are 3x3x16 = 144 wide
+            raise ValueError(f"argmax_matmul needs D a multiple of 16 up "
+                             f"to {_MAX_D[ref_p.dtype]} in {ref_p.dtype}, "
+                             f"got {d}")
+        for t in (ref_p, lr_p):
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError("argmax_matmul needs contiguous, 16-byte "
+                                 "aligned inputs")
+        conf = torch.empty((n, l_lr), dtype=torch.float32,
+                           device=lr_p.device)
+        index = torch.empty((n, l_lr), dtype=torch.int32,
+                            device=lr_p.device)
+        if conf.numel() == 0:
+            return conf, index
+        fn = build.function("argmax_matmul", "argmax_matmul_launch",
+                            _FORWARD_ARGS)
+        build.launch(fn, lr_p.device, ref_p.data_ptr(), lr_p.data_ptr(),
+                     conf.data_ptr(), index.data_ptr(), n, l_ref, l_lr, d,
+                     _DTYPES[ref_p.dtype])
+        argmax_matmul.launches += 1
         return conf, index
-    fn = build.function("argmax_matmul", "argmax_matmul_launch",
-                        _FORWARD_ARGS)
-    build.launch(fn, lr_p.device, ref_p.data_ptr(), lr_p.data_ptr(),
-                 conf.data_ptr(), index.data_ptr(), n, l_ref, l_lr, d,
-                 _DTYPES[ref_p.dtype])
-    argmax_matmul.launches += 1
-    return conf, index
 
 
 def argmax_matmul_backward(ref_p: torch.Tensor, lr_p: torch.Tensor,

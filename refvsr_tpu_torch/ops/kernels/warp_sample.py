@@ -35,6 +35,10 @@ before it reduces them into an f32 dx; that buffer has a pitch of C
 rounded up to 4 floats (``dx_pitch``), so that it takes float4 reductions,
 and dx is the view of its first C channels (f32) or that view cast to x's
 dtype once (bf16).
+
+Under a profiler session every forward call (``warp_sample`` without
+gradients, ``_WarpSample.forward``, ``warp_sample_banded``) is the span
+``refvsr.k1`` (``utils/trace.py``), on either path.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import ctypes
 import torch
 
 from refvsr_tpu_torch.ops.kernels import build
+from refvsr_tpu_torch.utils import trace
 
 # the C launchers' arguments before the stream
 _FORWARD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
@@ -202,27 +207,28 @@ def warp_sample_banded(x: torch.Tensor, flow: torch.Tensor, h: int,
     the plain version; CUDA tensors run the kernel (its conditions as
     ``warp_sample``'s), or raise. ``warp_sample_banded.launches`` counts
     kernel launches."""
-    _check(x, flow)
-    if x.device.type == "cpu":
-        return warp_sample_banded_plain(x, flow, h, out_h, out_row0,
-                                        in_row0, lo, hi)
-    x, flow = x.contiguous(), flow.contiguous()
-    _check_cuda(x, flow)
-    n, hb, w, c = x.shape
-    if c > _MAX_C[x.dtype]:
-        raise ValueError(f"warp_sample_banded takes C up to "
-                         f"{_MAX_C[x.dtype]} in {x.dtype}, got {c}")
-    ho, wo = flow.shape[1], flow.shape[2]
-    out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
+    with trace.span("refvsr.k1"):
+        _check(x, flow)
+        if x.device.type == "cpu":
+            return warp_sample_banded_plain(x, flow, h, out_h, out_row0,
+                                            in_row0, lo, hi)
+        x, flow = x.contiguous(), flow.contiguous()
+        _check_cuda(x, flow)
+        n, hb, w, c = x.shape
+        if c > _MAX_C[x.dtype]:
+            raise ValueError(f"warp_sample_banded takes C up to "
+                             f"{_MAX_C[x.dtype]} in {x.dtype}, got {c}")
+        ho, wo = flow.shape[1], flow.shape[2]
+        out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
+        if out.numel() == 0:
+            return out
+        fn = build.function("warp_sample", "warp_sample_banded_launch",
+                            _BANDED_ARGS)
+        build.launch(fn, x.device, x.data_ptr(), flow.data_ptr(),
+                     out.data_ptr(), n, hb, w, c, ho, wo, h, out_h, out_row0,
+                     in_row0, lo, hi, _DTYPES[x.dtype])
+        warp_sample_banded.launches += 1
         return out
-    fn = build.function("warp_sample", "warp_sample_banded_launch",
-                        _BANDED_ARGS)
-    build.launch(fn, x.device, x.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                 n, hb, w, c, ho, wo, h, out_h, out_row0, in_row0, lo, hi,
-                 _DTYPES[x.dtype])
-    warp_sample_banded.launches += 1
-    return out
 
 
 def _check(x, flow):
@@ -247,25 +253,26 @@ def _check_cuda(*ts):
 
 
 def _forward(x, flow):
-    if x.device.type == "cpu":
-        return warp_sample_plain(x, flow)
-    _check_cuda(x, flow)
-    n, h, w, c = x.shape
-    if c > _MAX_C[x.dtype]:
-        # one thread per 16 bytes of a pixel's channels, and a pixel's
-        # threads in one block of at most 256
-        raise ValueError(f"warp_sample takes C up to {_MAX_C[x.dtype]} in "
-                         f"{x.dtype}, got {c}")
-    ho, wo = flow.shape[1], flow.shape[2]
-    out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
+    with trace.span("refvsr.k1"):
+        if x.device.type == "cpu":
+            return warp_sample_plain(x, flow)
+        _check_cuda(x, flow)
+        n, h, w, c = x.shape
+        if c > _MAX_C[x.dtype]:
+            # one thread per 16 bytes of a pixel's channels, and a pixel's
+            # threads in one block of at most 256
+            raise ValueError(f"warp_sample takes C up to "
+                             f"{_MAX_C[x.dtype]} in {x.dtype}, got {c}")
+        ho, wo = flow.shape[1], flow.shape[2]
+        out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
+        if out.numel() == 0:
+            return out
+        fn = build.function("warp_sample", "warp_sample_launch",
+                            _FORWARD_ARGS)
+        build.launch(fn, x.device, x.data_ptr(), flow.data_ptr(),
+                     out.data_ptr(), n, h, w, c, ho, wo, _DTYPES[x.dtype])
+        warp_sample.launches += 1
         return out
-    fn = build.function("warp_sample", "warp_sample_launch",
-                        _FORWARD_ARGS)
-    build.launch(fn, x.device, x.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                 n, h, w, c, ho, wo, _DTYPES[x.dtype])
-    warp_sample.launches += 1
-    return out
 
 
 def warp_sample_backward(g: torch.Tensor, flow: torch.Tensor, x_shape,
