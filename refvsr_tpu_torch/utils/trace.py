@@ -36,8 +36,10 @@ Names; PERF.md section 3 gives the metric each one serves:
   ``refvsr.net.prop``, ``refvsr.net.up``: the network's five stages
   (``models/refvsr.py``); device spans.
 - ``refvsr.conv``: ``models/blocks.Conv2d.forward``.
-- ``refvsr.k1``, ``refvsr.k2``: the K1 and K2 wrappers' forward calls
-  (``ops/kernels``): checks, the output's allocation and the launch."""
+- ``refvsr.k1``, ``refvsr.k2``, ``refvsr.k3``: the K1, K2 and K3 wrappers'
+  forward calls (``ops/kernels``): checks, the output's allocation and the
+  launch. ``refvsr.k3`` lies inside ``refvsr.conv`` for each convolution
+  routed to K3 (``models/blocks.takes_k3``)."""
 
 from __future__ import annotations
 

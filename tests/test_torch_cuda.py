@@ -31,8 +31,13 @@ roundings of f32 sums taken in another order; at every C, at shapes that
 end mid-tile in both H and W (the tile height is 8, 4 or 2 rows by C, the
 tile width 64 pixels), a single row narrower than a tile, images of more
 tiles than the card holds blocks (each block walks several tiles and its
-halo ring wraps), and the model's 1080x1920x48. K4 bitwise, out-of-range
-indices clamped.
+halo ring wraps), and the model's 1080x1920x48. K3 in the path
+(``models/blocks.Conv2d.forward``): the 8K net's bf16 stream at a small
+frame launches it once for each convolution ``takes_k3`` admits, each such
+output within K3's tolerance of the library convolution on the same
+input, and the SR frames and carried state within the 8K configuration's
+``sr_rmse`` and ``state_rel`` limits of the library-only run. K4 bitwise,
+out-of-range indices clamped.
 
 The serving slice: the PNG codec round-trips exactly on this machine's
 zlib and numpy (no card needed: it also runs on the CPU); K1 at batch 2 on
@@ -501,6 +506,76 @@ def test_conv3x3_kernel_matches_plain(cuda_device, h, w, c):
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert bool(torch.isfinite(got.float()).all())
     assert envelope_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_k3_route_in_the_8k_stream(cuda_device, monkeypatch):
+    """RefVSR_MFID_8K at full width, bf16, at a small frame (64x128 LR,
+    T = 7): one ``forward_first`` and one ``forward_stream`` window. K3
+    launches once for each ``Conv2d`` call that ``takes_k3`` admits, and
+    each such call's output lies within K3's tolerance of the library
+    convolution of the same module on the same input; both windows' SR
+    frames and the carried state lie within the 8K configuration's
+    ``sr_rmse`` and ``state_rel`` limits of the run whose convolutions all
+    call ``nn.Conv2d.forward``."""
+    import json
+    from pathlib import Path
+
+    import torch.nn as nn
+
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.models import blocks
+    from refvsr_tpu_torch.models.refvsr import build_refvsr
+    cfg = get_config("RefVSR_MFID_8K")
+    limits = json.loads((Path(__file__).resolve().parents[1] / "benchmark"
+                         / "configs" / "RefVSR_MFID_8K.json").read_text()
+                        )["limits"]
+    t = cfg.frame_num
+    g = torch.Generator().manual_seed(18)
+    lrs = torch.rand((1, t + 1, 64, 128, 3), generator=g)
+    refs = torch.rand((1, t + 1, 64, 128, 3), generator=g)
+
+    def windows(hook=None):
+        net = build_refvsr(cfg, device=cuda_device, dtype=torch.bfloat16,
+                           seed=0)
+        if hook is not None:
+            for m in net.modules():
+                if isinstance(m, blocks.Conv2d):
+                    m.register_forward_hook(hook)
+        runner = StreamRunner(net, cfg.reset_branch, device=cuda_device,
+                              compute_dtype=torch.bfloat16)
+        outs = [runner.process_device(lrs[:, i:i + t], refs[:, i:i + t],
+                                      is_first=i == 0)[0].float()
+                for i in range(2)]
+        st = runner.state
+        return outs, [st.feat_prop.float(), st.feat_prop_up.float()]
+
+    ratios = []
+
+    def check_routed(m, args, out):
+        x = args[0]
+        if blocks.takes_k3(m, x):
+            want = nn.Conv2d.forward(m, x.permute(0, 3, 1, 2))
+            ratios.append(envelope_ratio(out[0], want[0].permute(1, 2, 0)))
+
+    before = conv3x3_bias.launches
+    got, got_state = windows(check_routed)
+    assert conv3x3_bias.launches - before == len(ratios) > 0
+    assert max(ratios) <= 1.0
+
+    def library(self, x):
+        return nn.Conv2d.forward(self, x.permute(0, 3, 1, 2)).permute(
+            0, 2, 3, 1)
+    monkeypatch.setattr(blocks.Conv2d, "forward", library)
+    before = conv3x3_bias.launches
+    want, want_state = windows()
+    assert conv3x3_bias.launches == before
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert float(torch.sqrt(((a - b) ** 2).mean())) <= limits["sr_rmse"]
+    for a, b in zip(got_state, want_state):
+        rel = torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)
+        assert float(rel) <= limits["state_rel"]
 
 
 @pytest.mark.cuda

@@ -25,13 +25,18 @@ torch.set_num_threads(2)
 # the readings on the H100 behind the spatial limits (PERF.md section 6):
 # the sound frames' and the halo-0 control's mean and seam-rows mean
 # |difference|, the seam rows' share of pixels more than one bf16 ulp off,
-# and the max |difference|
+# and the max |difference|; the last three and the last control with the
+# one-rank stream's and the replicated stages' square convolutions on K3
 SOUND = [(7.6195e-05, 7.6409e-05, 1.2076e-2, 3.90625e-3),
          (6.5859e-05, 6.7375e-05, 1.0118e-2, 3.90625e-3),
          (6.6441e-05, 6.8901e-05, 9.218e-3, 3.90625e-3),
-         (6.4404e-05, 6.7082e-05, 9.258e-3, 3.90625e-3)]
+         (6.4404e-05, 6.7082e-05, 9.258e-3, 3.90625e-3),
+         (7.6477e-05, 7.6299e-05, 1.2066e-2, 3.90625e-3),
+         (6.6122e-05, 6.7261e-05, 1.0220e-2, 3.90625e-3),
+         (6.6723e-05, 6.8116e-05, 9.204e-3, 3.90625e-3)]
 CONTROL = [(9.3581e-05, 3.6725e-04, 7.7187e-2, 1.5625e-2),
-           (7.3926e-05, 2.0149e-04, 4.5836e-2, 7.8125e-3)]
+           (7.3926e-05, 2.0149e-04, 4.5836e-2, 7.8125e-3),
+           (7.4162e-05, 2.0150e-04, 4.5925e-2, 9.765625e-3)]
 
 
 @pytest.fixture
@@ -141,6 +146,21 @@ def test_spatial_check_fails_errors_gathered_in_the_seam_band(small_frame):
     assert f["near_seam_mean"] <= chip_smoke.SPATIAL_SEAM_MEAN_LIMIT
     assert f["mean"] <= chip_smoke.SPATIAL_MEAN_LIMIT
     assert not chip_smoke.passes_spatial(f)
+
+
+@pytest.mark.parametrize("rows", [1, 5, 256])
+def test_k3_ratio_is_the_envelope_over_bands(rows):
+    """Phase 8 holds each of K3's calls in the 8K stream to its envelope
+    around the plain version in bands of rows; the bands give the ratio
+    of the whole image."""
+    from refvsr_tpu_torch.bench.microbench_conv import envelope_ratio
+    gen = torch.Generator().manual_seed(3)
+    want = torch.randn((37, 11, 16), generator=gen).bfloat16()
+    got = (want.float() * (1 + 0.01 * torch.randn(want.shape,
+                                                  generator=gen))).bfloat16()
+    assert chip_smoke._k3_ratio(got, want, rows) == pytest.approx(
+        envelope_ratio(got, want), rel=1e-6)
+    assert chip_smoke._k3_ratio(want, want, rows) == 0.0
 
 
 def _cx(x, y, **held):

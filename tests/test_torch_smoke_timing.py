@@ -159,9 +159,10 @@ STUBS = {
     "device_kernels": [], "phase_k1": [], "k1_host_pieces": {},
     "phase_k2": [],
     "phase_k1_backward": [], "phase_k2_backward": [],
-    "phase_microbench": ({}, {}), "phase_small_agreement": None,
+    "phase_microbench": ({}, {"conv3x3_bias": ({}, [])}),
+    "phase_small_agreement": None,
     "phase_small_training": None, "phase_ir_small": None,
-    "phase_main_path": ({}, {}, {}, {}, {}),
+    "phase_main_path": ({}, {}, {}, {}, {}, []),
     "phase_serving": ({}, {}, {}), "phase_pipelined": ({}, {}, {}),
     "phase_spatial": ({}, {}, {"argmax_matmul": [],
                                "warp_sample_banded": []}, []),
