@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from refvsr_tpu_torch.models.blocks import Conv2d, ResidualBlockNoBN, lrelu
 from refvsr_tpu_torch.ops.kernels.warp_sample import bilinear_sample
 from refvsr_tpu_torch.ops.resize import _nchw, _nhwc, resize
+from refvsr_tpu_torch.utils import trace
 
 _TAPS = 9
 
@@ -80,15 +81,17 @@ def modulated_deform_conv(x, offset, mask, weight, bias, deform_groups: int):
     """mmcv ``modulated_deform_conv2d`` (3x3, stride 1, pad 1, dilation 1,
     the only configuration EDVR uses). x (N, H, W, C); offset (N, H, W,
     2*dg*9) in mmcv's layout; mask (N, H, W, dg*9), already sigmoided;
-    weight (O, C, 3, 3); bias (O,) or None. Returns (N, H, W, O)."""
-    n, h, w, c = x.shape
-    dg = deform_groups
-    cg = c // dg
-    sy, sx = _sample_coords(offset, h, w, dg)
-    xg = x.reshape(n, h, w, dg, cg).permute(0, 3, 1, 2, 4).reshape(
-        n * dg, h, w, cg)
-    sampled = bilinear_sample(xg, sx, sy, "zeros")    # (N*dg, H, W*9, cg)
-    return _contract(sampled, mask, weight, bias, n, h, w, dg)
+    weight (O, C, 3, 3); bias (O,) or None. Returns (N, H, W, O). Under a
+    profiler session the call is the host span ``refvsr.dcn``."""
+    with trace.span("refvsr.dcn"):
+        n, h, w, c = x.shape
+        dg = deform_groups
+        cg = c // dg
+        sy, sx = _sample_coords(offset, h, w, dg)
+        xg = x.reshape(n, h, w, dg, cg).permute(0, 3, 1, 2, 4).reshape(
+            n * dg, h, w, cg)
+        sampled = bilinear_sample(xg, sx, sy, "zeros")  # (N*dg, H, W*9, cg)
+        return _contract(sampled, mask, weight, bias, n, h, w, dg)
 
 
 def modulated_deform_conv_plain(x, offset, mask, weight, bias,

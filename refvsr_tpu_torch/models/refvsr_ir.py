@@ -31,7 +31,13 @@ from the backward loop, backward_flows[:, 0] (RefVSR_IR.py:325-327).
 Kernels: every warp goes through K1 (``ops/warp.warp``): 2 per backward
 step, 2 at forward step 0 and 3 per later forward step, so 2T + 2 + 3*(T//2)
 per window (32 at T = 9); the matching through K2, one batch-T launch per
-window."""
+window.
+
+Spans (``utils/trace.py``), besides the stages this net shares with
+RefVSRNet: ``refvsr.net.refill`` (device span) around
+``compute_refill_features``, one a window, and ``refvsr.net.prop`` around
+each ``_ir_step``, T backward and T//2 + 1 forward a window (14 at T = 9);
+EDVR's deformable convolutions inside the refill are ``refvsr.dcn``."""
 
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from refvsr_tpu_torch.models.refvsr import (RefVSRNet, StreamState,
                                             _flow_up2, init_stream_state,
                                             replicated_rows)
 from refvsr_tpu_torch.ops.warp import warp
+from refvsr_tpu_torch.utils import trace
 
 
 def sliding_keyframe_mask(t: int, stride: int, prev_first):
@@ -100,7 +107,9 @@ class RefVSRIRNet(RefVSRNet):
         of lrs (N, T, H, W, 3), each from its 5-frame mirror-padded
         neighbourhood (RefVSR_IR.py:194-215): (N, len(keys), H, W, 64).
         EDVR runs replicated under an active spatial context."""
-        return replicated_rows(lambda x: self._refill(x, keys), lrs, dim=2)
+        with trace.span("refvsr.net.refill", lrs):
+            return replicated_rows(lambda x: self._refill(x, keys), lrs,
+                                   dim=2)
 
     def _refill(self, lrs, keys):
         n, t, h, w, c = lrs.shape
@@ -121,31 +130,34 @@ class RefVSRIRNet(RefVSRNet):
         """One IR propagation step (RefVSR_IR.py:283-347). x holds lr,
         conf, flow, aligned, aligned_up, the frame's refill features (None
         off keyframes) and, forward only, bw_out and up_flow."""
-        feat_prop, feat_prop_up, conf_prop = carry
-        mid = feat_prop.shape[-1]
-        if "up_flow" not in x:
-            # conf rides the feature warp (same flow and grid); UP warps
-            # the carried UP tensor
-            packed = warp(torch.cat([feat_prop, conf_prop], -1), x["flow"])
-            feat_prop, conf_prop = packed[..., :mid], packed[..., mid:]
-            feat_prop_up = warp(feat_prop_up, _flow_up2(x["flow"]))
-        else:
-            # forward at i > 0: UP warps the warped low-res feat, and UP and
-            # conf take up_flow (the stale flow unless fixed)
-            feat_prop = warp(feat_prop, x["flow"])
-            feat_prop_up = warp(feat_prop, _flow_up2(x["up_flow"]))
-            conf_prop = warp(conf_prop, x["up_flow"])
-        if x["refill"] is not None:
-            fusion = (self.backward_fusion if branch == "backward"
-                      else self.forward_fusion)
-            feat_prop = fusion(torch.cat([feat_prop, x["refill"]], -1))
-        if branch == "backward":
-            agg = self.backward_resblocks(torch.cat([x["lr"], feat_prop], -1))
-        else:
-            agg = self.forward_resblocks(
-                torch.cat([x["lr"], x["bw_out"], feat_prop], -1))
-        return self.rap(x["conf"], conf_prop, agg, feat_prop_up,
-                        x["aligned"], x["aligned_up"])
+        with trace.span("refvsr.net.prop", x["lr"]):
+            feat_prop, feat_prop_up, conf_prop = carry
+            mid = feat_prop.shape[-1]
+            if "up_flow" not in x:
+                # conf rides the feature warp (same flow and grid); UP
+                # warps the carried UP tensor
+                packed = warp(torch.cat([feat_prop, conf_prop], -1),
+                              x["flow"])
+                feat_prop, conf_prop = packed[..., :mid], packed[..., mid:]
+                feat_prop_up = warp(feat_prop_up, _flow_up2(x["flow"]))
+            else:
+                # forward at i > 0: UP warps the warped low-res feat, and UP
+                # and conf take up_flow (the stale flow unless fixed)
+                feat_prop = warp(feat_prop, x["flow"])
+                feat_prop_up = warp(feat_prop, _flow_up2(x["up_flow"]))
+                conf_prop = warp(conf_prop, x["up_flow"])
+            if x["refill"] is not None:
+                fusion = (self.backward_fusion if branch == "backward"
+                          else self.forward_fusion)
+                feat_prop = fusion(torch.cat([feat_prop, x["refill"]], -1))
+            if branch == "backward":
+                agg = self.backward_resblocks(
+                    torch.cat([x["lr"], feat_prop], -1))
+            else:
+                agg = self.forward_resblocks(
+                    torch.cat([x["lr"], x["bw_out"], feat_prop], -1))
+            return self.rap(x["conf"], conf_prop, agg, feat_prop_up,
+                            x["aligned"], x["aligned_up"])
 
     def _run(self, lrs, refs, state: StreamState, keyframe_mask, clamp_out,
              cached_flows=False):

@@ -35,6 +35,13 @@ Names; PERF.md section 3 gives the metric each one serves:
 - ``refvsr.net.flows``, ``refvsr.net.matching``, ``refvsr.net.aligned``,
   ``refvsr.net.prop``, ``refvsr.net.up``: the network's five stages
   (``models/refvsr.py``); device spans.
+- ``refvsr.net.refill``: RefVSR-IR's EDVR refill features
+  (``models/refvsr_ir.compute_refill_features``), one a window; a device
+  span. The IR net's propagation steps (``_ir_step``) are
+  ``refvsr.net.prop`` spans too.
+- ``refvsr.dcn``: one modulated deformable convolution
+  (``models/edvr.modulated_deform_conv``), 20 a window of EDVR's PCD
+  alignment (5 frames x levels 3, 2, 1 and the cascade).
 - ``refvsr.conv``: ``models/blocks.Conv2d.forward``.
 - ``refvsr.k1``, ``refvsr.k2``, ``refvsr.k3``: the K1, K2 and K3 wrappers'
   forward calls (``ops/kernels``): checks, the output's allocation and the
