@@ -32,7 +32,12 @@ outside a checkout of the repository. Phases, each fatal on failure:
    ``gather_rows``, R 2048, L 128 bf16, P 2^20, beside ``index_select``),
    each driven with the launch counts set to 0 just before and read just
    after; then K3 against its plain version at ragged shapes and K4's check
-   mode (f32 and bf16, indices out of range on both sides);
+   mode (f32 and bf16, indices out of range on both sides); then K5
+   ``deform_conv`` against its plain version at the IR cell's shapes (C 64,
+   8 groups, N = 3 and 2 keyframes at 272x480, 136x240 and 68x120, x a
+   frame slice) and with dead, edge, integer and NaN taps at small shapes
+   of every width it takes, each cell shape timed beside the plain
+   version, the row-gather path it replaced and its bound;
 7. small-input agreement checks: the port on the card (f32, kernels)
    against the port on the CPU (f32, plain versions), for the stream and
    for one training step (losses and gradients);
@@ -975,6 +980,107 @@ def phase_microbench(card):
                       "gather_rows": (gather, gather_cases)}
 
 
+# ---------------------------------------------------------------- K5
+
+
+def phase_k5(dev):
+    """K5 ``deform_conv`` against its plain version at the IR cell's
+    shapes (C 64, 8 groups, x the middle frame of an (N, 5, H, W, C)
+    tensor, fractional offsets; ``bench/dcn_cases.py``), and at small
+    shapes with dead taps (far outside, anchors on exactly -1 and H - 1,
+    integer and NaN offsets, a NaN tap held against the plain version given
+    a far one; the dead pixels exactly the bias), within 1e-5 of the
+    largest plain output. Each cell shape's kernel, plain-version and
+    row-gather-path (``edvr._deform_conv_rows``, the route before K5)
+    times by CUDA events, beside its bound (bytes at 3.35 TB/s against
+    operations at the TF32 rate, the benchmark's yardstick) and the f32
+    FMA floor (operations at 67 TFLOP/s). Returns (one 3-keyframe IR
+    frame's 20 calls, summed from the N = 3 shapes; every case)."""
+    from refvsr_tpu_torch.bench import PEAK_FLOPS
+    from refvsr_tpu_torch.bench.dcn_cases import (FRAMES, LEVELS,
+                                                  dead_for_nan, dead_pixels,
+                                                  make_inputs)
+    from refvsr_tpu_torch.models import edvr
+    from refvsr_tpu_torch.ops.kernels.deform_conv import deform_conv
+    cases, frame = [], dict(ms=0.0, plain_ms=0.0, rows_ms=0.0, nbytes=0,
+                            flops=0.0, max_abs_err=0.0)
+    for n in (3, 2):
+        for h, w, calls in LEVELS:
+            args = make_inputs(n, h, w, seed=n * h, device=dev,
+                               frames=FRAMES)
+            got = deform_conv(*args, 8)
+            want = edvr.modulated_deform_conv_plain(*args, 8)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            limit = 1e-5 * float(want.abs().max())
+            check(err <= limit, f"K5 {n}x{h}x{w}: max |kernel - plain| "
+                  f"{err} > {limit}")
+            del got, want
+            with clock("K5 kernel"):
+                ms = cuda_ms(lambda: deform_conv(*args, 8), iters=20)
+            with clock("K5 plain"):
+                plain_ms = cuda_ms(
+                    lambda: edvr.modulated_deform_conv_plain(*args, 8),
+                    iters=2, warmup=1)
+            with clock("K5 row-gather path"):
+                rows_ms = cuda_ms(lambda: edvr._deform_conv_rows(*args, 8),
+                                  iters=3, warmup=1)
+            x, off, mask, wgt, bias = args
+            px = n * h * w
+            nbytes = 4 * (px * (64 + off.shape[-1] + mask.shape[-1] + 64)
+                          + wgt.numel() + bias.numel())
+            flops = 2.0 * px * 9 * 64 * 64 + 8.0 * px * 9 * 64
+            b_ms, b_by = bound_ms(nbytes, flops, "tf32")
+            fma_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+            log(f"K5 {n}x{h}x{w}x64, 8 groups: max_abs_err {err:.3e} "
+                f"(limit {limit:.3e}); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, row-gather path {rows_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}), f32 FMA floor {fma_ms:.4f} "
+                f"ms")
+            cases.append(dict(case=f"{n}x{h}x{w}x64 dg 8", max_abs_err=err,
+                              tolerance=limit, ms=ms, plain_ms=plain_ms,
+                              library_ms=None, rows_ms=rows_ms,
+                              bound_ms=b_ms, bound_by=b_by, fma_ms=fma_ms))
+            if n == 3:
+                for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                             ("rows_ms", rows_ms), ("nbytes", nbytes),
+                             ("flops", flops)):
+                    frame[k] += calls * v
+                frame["max_abs_err"] = max(frame["max_abs_err"], err)
+            del args
+            torch.cuda.empty_cache()
+    for n, h, w, c, dg, kind in ((2, 37, 53, 64, 8, "edges"),
+                                 (2, 68, 120, 64, 8, "integer"),
+                                 (2, 29, 31, 32, 4, "edges"),
+                                 (1, 9, 10, 32, 8, "edges")):
+        args = make_inputs(n, h, w, c, dg, kind, seed=h, device=dev)
+        got = deform_conv(*args, dg)
+        want = edvr.modulated_deform_conv_plain(*dead_for_nan(*args), dg)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        limit = 1e-5 * float(want.abs().max())
+        check(_finite(got) and err <= limit,
+              f"K5 {kind} {n}x{h}x{w}x{c}: max |kernel - plain| {err} > "
+              f"{limit}")
+        if kind == "edges":
+            check(all(torch.equal(got[0, y, x], args[4])
+                      for y, x in dead_pixels(h, w)),
+                  f"K5 {kind} {n}x{h}x{w}x{c}: a dead pixel is not the bias")
+        log(f"K5 {kind} {n}x{h}x{w}x{c}, {dg} groups: max_abs_err "
+            f"{err:.3e} (limit {limit:.3e})")
+        cases.append(dict(case=f"{kind} {n}x{h}x{w}x{c} dg {dg}",
+                          max_abs_err=err, tolerance=limit))
+    main = dict(frame, case="one 3-keyframe IR frame, 20 calls (10 at "
+                "3x272x480, 5 at 3x136x240, 5 at 3x68x120)",
+                library_ms=None, peak="tf32",
+                fma_ms=frame["flops"] / PEAK_FLOPS[torch.float32] * 1e3)
+    log(f"K5 in one 3-keyframe IR frame: kernel {main['ms']:.3f} ms, plain "
+        f"{main['plain_ms']:.3f} ms, row-gather path {main['rows_ms']:.3f} "
+        f"ms, bound {bound_ms(main['nbytes'], main['flops'], 'tf32')[0]:.3f}"
+        f" ms, f32 FMA floor {main['fma_ms']:.3f} ms")
+    return main, cases
+
+
 # ---------------------------------------------------------------- nets
 
 
@@ -1038,6 +1144,7 @@ BENCH_FNS = {"microbench_conv": "conv3x3_bias",
 def _kernel_fns():
     from refvsr_tpu_torch.ops.kernels import argmax_matmul as k2
     from refvsr_tpu_torch.ops.kernels import conv3x3 as k3
+    from refvsr_tpu_torch.ops.kernels import deform_conv as k5
     from refvsr_tpu_torch.ops.kernels import gather_rows as k4
     from refvsr_tpu_torch.ops.kernels import warp_sample as k1
     return {"warp_sample": k1.warp_sample,
@@ -1046,6 +1153,7 @@ def _kernel_fns():
             "argmax_matmul": k2.argmax_matmul,
             "argmax_matmul_backward": k2.argmax_matmul_backward,
             "conv3x3_bias": k3.conv3x3_bias,
+            "deform_conv": k5.deform_conv,
             "gather_rows": k4.gather_rows}
 
 
@@ -1291,6 +1399,7 @@ def _shape_key(args):
 
 
 KERNEL_TAGS = {"conv3x3_bias": "conv3x3_bias_kernel",
+               "deform_conv": "deform_conv_kernel",
                "warp_sample": "warp_sample_kernel",
                "warp_sample_backward": "warp_sample_backward_kernel",
                "argmax_matmul": "argmax_matmul_kernel",
@@ -2608,14 +2717,15 @@ def phase_ir_small(dev):
         out_g = runners[1].process(lrs[:, wi:wi + t], refs[:, wi:wi + t],
                                    wi == 0)[0]
         n = read_launches()
-        per_window.append((n["warp_sample"], n["argmax_matmul"]))
+        per_window.append((n["warp_sample"], n["argmax_matmul"],
+                           n["deform_conv"]))
         worst = max(worst, float(abs(out_c - out_g).max()))
-    check(per_window == [(2 * t + 2 + 3 * (t // 2), 1)] * 3,
-          f"tiny IR windows: K1/K2 launches {per_window}")
+    check(per_window == [(2 * t + 2 + 3 * (t // 2), 1, 20)] * 3,
+          f"tiny IR windows: K1/K2/K5 launches {per_window}")
     check(worst <= 1e-3, f"tiny IR: card vs CPU max diff {worst} > 1e-3")
     log(f"tiny IR (2 blocks, 8 ch, EDVR 64 ch, T={t}, 32x44, f32): first + "
         f"2 streamed windows, card vs CPU max_abs_diff {worst:.3e} (limit "
-        f"1e-3); K1/K2 launches per window {per_window}")
+        f"1e-3); K1/K2/K5 launches per window {per_window}")
 
     cfg = get_config("RefVSR_IR_MFID", num_blocks=2, mid_channels=8,
                      frame_num=t, frame_itr_num=2, patch_size=16,
@@ -2709,6 +2819,7 @@ def ir_eval_instruments(rec):
                     ms=(time.perf_counter() - t0) * 1e3,
                     k1=after["warp_sample"] - before["warp_sample"],
                     k2=after["argmax_matmul"] - before["argmax_matmul"],
+                    k5=after["deform_conv"] - before["deform_conv"],
                     first=self.count == 1))
                 rec["timed"] = rec["gate"] = False
         return f
@@ -2789,10 +2900,10 @@ def phase_ir_eval(dev, card):
         peak = torch.cuda.max_memory_allocated()
         t = cfg.frame_num
         want_k1 = 2 * t + 2 + 3 * (t // 2)
-        check([(w["k1"], w["k2"]) for w in rec["windows"]]
-              == [(want_k1, 1)] * n_frames,
-              f"IR eval windows' K1/K2 launches "
-              f"{[(w['k1'], w['k2']) for w in rec['windows']]}")
+        check([(w["k1"], w["k2"], w["k5"]) for w in rec["windows"]]
+              == [(want_k1, 1, 20)] * n_frames,
+              f"IR eval windows' K1/K2/K5 launches "
+              f"{[(w['k1'], w['k2'], w['k5']) for w in rec['windows']]}")
         check(not launches["warp_sample_backward"]
               and not launches["argmax_matmul_backward"]
               and not any(launches[k] for k in BENCH_FNS.values()),
@@ -2847,15 +2958,15 @@ def phase_ir_eval(dev, card):
             f"{IR_TIMED_WINDOW}: EDVR refill "
             + ", ".join(f"{v:.1f}" for v in rec["edvr_ms"])
             + f" ms ({summary['edvr_share']:.3f} of its {timed_ms:.1f} ms), "
-            f"{len(rec['dcn_ms'])} plain deformable convolutions "
-            f"{summary['dcn_ms']:.1f} ms; K1/K2 launches per window "
-            f"({want_k1}, 1); peak allocated {peak / 2**30:.2f} GiB; PSNR "
+            f"{len(rec['dcn_ms'])} deformable convolutions "
+            f"{summary['dcn_ms']:.1f} ms; K1/K2/K5 launches per window "
+            f"({want_k1}, 1, 20); peak allocated {peak / 2**30:.2f} GiB; PSNR "
             f"{res['PSNR']:.4f} SSIM {res['SSIM']:.4f}; {len(lines)} score "
             f"lines, {dumps} PNG/JPEG dumps decoded  [{card}]")
 
         prof, wall_ms = rec.pop("prof")
         in_window, summary["profiled_window"] = device_profile(
-            prof, ("warp_sample", "argmax_matmul"),
+            prof, ("warp_sample", "argmax_matmul", "deform_conv"),
             "IR forward_stream window", wall_ms, card, top=15)
         summary["kernels_in_window"] = in_window
         del prof
@@ -4031,6 +4142,18 @@ KERNEL_META = {
               "each shape timed alone once by CUDA events and counted for "
               "each of its launches; the cases add the microbenchmark's "
               "1080x1920x48 call and its ragged shapes"),
+    "deform_conv": dict(
+        id="K5", source="refvsr_tpu_torch/csrc/deform_conv.cu",
+        replaces="none: the JAX package computes the DCN plainly "
+                 "(refvsr_tpu/models/edvr.py); mmcv's op was the "
+                 "reference's one native CUDA op",
+        tolerance="1e-5 * max|plain| (f32); dead pixels exactly the bias",
+        ms_is="CUDA-event time of one 3-keyframe IR frame's 20 calls (10 "
+              "at 3x272x480x64, 5 at 3x136x240x64, 5 at 3x68x120x64, each "
+              "shape timed alone); plain_ms the plain version's, rows_ms "
+              "the row-gather path's (the route before K5), bound_ms bytes "
+              "against the TF32 rate (the benchmark's yardstick), fma_ms "
+              "the operations at 67 TFLOP/s f32"),
     "gather_rows": dict(
         id="K4", source="refvsr_tpu_torch/csrc/gather_rows.cu",
         replaces="scripts/microbench_pallas_gather.py:93",
@@ -4071,11 +4194,12 @@ def kernels_line(synthetic, on_path, in_path, in_step, launches, bench,
         if name in bench:
             main, cases = bench[name]
             b_ms, b_by = bound_ms(main["nbytes"], main["flops"],
-                                  torch.bfloat16)
+                                  main.get("peak", torch.bfloat16))
             kernels.append(dict(
                 entry, max_abs_err=max(c["max_abs_err"] for c in cases),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 library_ms=main["library_ms"], bound_ms=b_ms, bound_by=b_by,
+                **{k: main[k] for k in ("rows_ms", "fma_ms") if k in main},
                 cases=[_case(c) for c in cases]))
             continue
         counted, rest = on_path[name]
@@ -4163,6 +4287,9 @@ def smoke():
     torch.cuda.empty_cache()
     with clock("microbench"):
         launches, bench = phase_microbench(card)
+    with clock("k5"):
+        bench["deform_conv"] = phase_k5(dev)
+    torch.cuda.empty_cache()
     with clock("small_agreement"):
         phase_small_agreement(dev)
     with clock("small_training"):

@@ -4,13 +4,17 @@ counterpart of ``refvsr_tpu/models/edvr.py``.
 The modulated deformable convolution (mmcv's ``modulated_deform_conv2d``,
 the reference's one native CUDA op) is not a TPU kernel in the JAX package,
 which computes it with plain gathers and one matmul; the port does the same
-in PyTorch. ``modulated_deform_conv`` folds the deform groups into the
-batch, samples the 9 taps of every group with ``bilinear_sample`` (four
-corner gathers of whole rows of ``cg`` channels, so no index is as large as
-the sampled tensor), applies the mask and contracts (HW, 9*C) x (9*C, O) in
-one ``torch.matmul``. ``modulated_deform_conv_plain`` is a transcription of
-the JAX formulation (a zero ring around the image, anchors clamped to
-[-1, S-1], one ``torch.gather`` per corner) that the tests hold it against.
+in PyTorch, and on the card hands f32 inference to K5
+(``ops/kernels/deform_conv.py``, a hand-written CUDA kernel that samples,
+masks and contracts in one launch) wherever ``takes_k5`` holds. Elsewhere
+(training, the CPU, other widths or dtypes) ``modulated_deform_conv`` folds
+the deform groups into the batch, samples the 9 taps of every group with
+``bilinear_sample`` (four corner gathers of whole rows of ``cg`` channels,
+so no index is as large as the sampled tensor), applies the mask and
+contracts (HW, 9*C) x (9*C, O) in one ``torch.matmul``.
+``modulated_deform_conv_plain`` is a transcription of the JAX formulation
+(a zero ring around the image, anchors clamped to [-1, S-1], one
+``torch.gather`` per corner) that the tests hold both against.
 
 Offset layout as mmcv reads it and as the JAX package reinterprets it:
 ``ModulatedDCNPack`` splits its offset conv's output into o1 | o2 | mask,
@@ -33,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from refvsr_tpu_torch.models.blocks import Conv2d, ResidualBlockNoBN, lrelu
+from refvsr_tpu_torch.ops.kernels import deform_conv
 from refvsr_tpu_torch.ops.kernels.warp_sample import bilinear_sample
 from refvsr_tpu_torch.ops.resize import _nchw, _nhwc, resize
 from refvsr_tpu_torch.utils import trace
@@ -77,21 +82,49 @@ def _contract(sampled, mask, weight, bias, n, h, w, dg):
     return out
 
 
+def takes_k5(x, offset, mask, weight, bias, deform_groups: int) -> bool:
+    """Whether ``modulated_deform_conv`` computes the call with K5: x on
+    the card, no gradient asked for (K5 has no backward), and operands K5
+    takes (``deform_conv.accepts``: all f32, C in == C out of 32 or 64, a
+    bias, 4 or 8 deform groups, contiguous offsets and mask, each image of
+    x contiguous, 16-byte aligned). The spatial context does not matter:
+    EDVR runs under ``models/refvsr.replicated_rows``, which suspends it,
+    so the deformable convolution always sees whole images, and K5
+    computes the same per-pixel function as the row-gather path on
+    whatever images it is given."""
+    return (x.is_cuda and not torch.is_grad_enabled()
+            and deform_conv.accepts(x, offset, mask, weight, bias,
+                                    deform_groups))
+
+
+def _deform_conv_rows(x, offset, mask, weight, bias, deform_groups: int):
+    """The row-gather path: the deform groups folded into the batch, the
+    taps sampled by ``bilinear_sample``, masked and contracted in one
+    matmul."""
+    n, h, w, c = x.shape
+    dg = deform_groups
+    cg = c // dg
+    sy, sx = _sample_coords(offset, h, w, dg)
+    xg = x.reshape(n, h, w, dg, cg).permute(0, 3, 1, 2, 4).reshape(
+        n * dg, h, w, cg)
+    sampled = bilinear_sample(xg, sx, sy, "zeros")  # (N*dg, H, W*9, cg)
+    return _contract(sampled, mask, weight, bias, n, h, w, dg)
+
+
 def modulated_deform_conv(x, offset, mask, weight, bias, deform_groups: int):
     """mmcv ``modulated_deform_conv2d`` (3x3, stride 1, pad 1, dilation 1,
     the only configuration EDVR uses). x (N, H, W, C); offset (N, H, W,
     2*dg*9) in mmcv's layout; mask (N, H, W, dg*9), already sigmoided;
-    weight (O, C, 3, 3); bias (O,) or None. Returns (N, H, W, O). Under a
-    profiler session the call is the host span ``refvsr.dcn``."""
+    weight (O, C, 3, 3); bias (O,) or None. Returns (N, H, W, O). K5
+    computes it where ``takes_k5`` holds, the row-gather path elsewhere.
+    Under a profiler session the call is the host span ``refvsr.dcn``, and
+    a call K5 computes holds the span ``refvsr.k5``."""
     with trace.span("refvsr.dcn"):
-        n, h, w, c = x.shape
-        dg = deform_groups
-        cg = c // dg
-        sy, sx = _sample_coords(offset, h, w, dg)
-        xg = x.reshape(n, h, w, dg, cg).permute(0, 3, 1, 2, 4).reshape(
-            n * dg, h, w, cg)
-        sampled = bilinear_sample(xg, sx, sy, "zeros")  # (N*dg, H, W*9, cg)
-        return _contract(sampled, mask, weight, bias, n, h, w, dg)
+        if takes_k5(x, offset, mask, weight, bias, deform_groups):
+            return deform_conv.deform_conv(x, offset, mask, weight, bias,
+                                           deform_groups)
+        return _deform_conv_rows(x, offset, mask, weight, bias,
+                                 deform_groups)
 
 
 def modulated_deform_conv_plain(x, offset, mask, weight, bias,

@@ -6,6 +6,10 @@
   ``models/blocks.Conv2d.forward`` for the square 3x3 convolutions of bf16
   inference on one image (``blocks.takes_k3``; the rest stay cuDNN) and by
   the microbenchmark ``bench.microbench_conv``.
+- ``deform_conv`` (K5): the modulated deformable convolution in f32,
+  ``csrc/deform_conv.cu``; run by ``models/edvr.modulated_deform_conv``
+  for RefVSR-IR's f32 inference on the card (``edvr.takes_k5``; training
+  and other operands keep the row-gather path).
 - ``gather_rows`` (K4): row gather with clamped indices,
   ``csrc/gather_rows.cu``; run by the microbenchmark
   ``bench.microbench_gather``.
@@ -14,7 +18,8 @@ Each wrapper runs its plain version for CPU tensors only, launches its kernel
 for CUDA tensors (or raises), and counts launches in ``<wrapper>.launches``.
 Under a profiler session each forward call of K1 (``warp_sample``,
 ``warp_sample_banded``) is the span ``refvsr.k1``, each of K2 the span
-``refvsr.k2`` and each of K3 the span ``refvsr.k3`` (``utils/trace.py``):
+``refvsr.k2``, each of K3 the span ``refvsr.k3`` and each of K5 the span
+``refvsr.k5`` (``utils/trace.py``):
 the checks, the output's allocation and the launch, so that the host's
 time on the launch path has a name on the timeline.
 """

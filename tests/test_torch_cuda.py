@@ -61,7 +61,18 @@ RefVSR-IR and the eval CLI: the plain deformable convolution on the card
 against the CPU within 1e-5 of the largest output (f32, TF32 off); a tiny
 IR net's windows on the card against the CPU within 1e-3, with the
 kernels' launches per window; the JPEG encoder's header and the inferno
-table (no card needed)."""
+table (no card needed). K5, the deformable convolution kernel, against the
+plain version within 1e-5 of the largest plain output (f32 sums of 9C
+products split into TF32 halves, in another order than the matmul's): at
+the IR cell's three level shapes with N = 2 and 3 (C 64, 8 groups, x a
+frame slice of an (N, 5, H, W, C) tensor) and at ragged shapes of the
+other widths and groups it takes (C 32 with 4 or 8, C 64 with 4); with
+taps far outside, anchors on exactly -1 and S - 1, integer and NaN offsets (a NaN tap held against the plain version
+given a far one; a pixel whose every tap is dead gives the bias exactly);
+its launch counter one a call, its refusals on the card; and one IR window
+at the configuration's widths routing 20 of 20 deformable convolutions to
+K5 (``refvsr.k5`` inside each ``refvsr.dcn``), its SR frame within the
+cell's ``sr_rmse`` limit, 1e-5, of the row-gather path's."""
 
 import os
 
@@ -74,12 +85,15 @@ from refvsr_tpu_torch.ops.kernels.argmax_matmul import (
     argmax_matmul_plain)
 from refvsr_tpu_torch.bench.microbench_conv import (envelope_ratio,
                                                     make_inputs)
+from refvsr_tpu_torch.bench import dcn_cases
 from refvsr_tpu_torch.bench.ties import tied_rows
 from refvsr_tpu_torch.configs import get_config
 from refvsr_tpu_torch.data.png import (decode_png, encode_png, read_image,
                                        write_image)
 from refvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_bias,
                                                   conv3x3_bias_plain)
+from refvsr_tpu_torch.models.edvr import modulated_deform_conv_plain
+from refvsr_tpu_torch.ops.kernels.deform_conv import deform_conv
 from refvsr_tpu_torch.ops.kernels.gather_rows import (gather_rows,
                                                       gather_rows_plain)
 from refvsr_tpu_torch.ops.kernels.warp_sample import (
@@ -820,6 +834,114 @@ def test_ir_window_card_matches_cpu(cuda_device):
             2 * t + 2 + 3 * (t // 2), 1)
         assert got.shape == (1, 120, 168, 3)
         assert float(np.abs(got - want).max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,dg", [
+    (n, h, w, 64, 8) for n in (2, 3) for h, w, _ in dcn_cases.LEVELS]
+    + [(2, 37, 53, 32, 4), (1, 29, 131, 32, 8), (3, 5, 7, 64, 4)])
+def test_deform_conv_kernel_matches_plain(cuda_device, n, h, w, c, dg):
+    args = dcn_cases.make_inputs(n, h, w, c, dg, seed=n * h + c,
+                                 device=cuda_device, frames=5)
+    assert n == 1 or not args[0].is_contiguous()
+    got = deform_conv(*args, dg)
+    want = modulated_deform_conv_plain(*args, dg)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    lim = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= lim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,dg,kind", [
+    (2, 37, 53, 64, 8, "edges"), (3, 68, 120, 64, 8, "edges"),
+    (2, 68, 120, 64, 8, "integer"), (2, 29, 31, 32, 4, "edges"),
+    (1, 9, 10, 32, 8, "edges")])
+def test_deform_conv_kernel_dead_and_edge_taps(cuda_device, n, h, w, c, dg,
+                                               kind):
+    args = dcn_cases.make_inputs(n, h, w, c, dg, kind, seed=h,
+                                 device=cuda_device)
+    got = deform_conv(*args, dg)
+    want = modulated_deform_conv_plain(*dcn_cases.dead_for_nan(*args), dg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    lim = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= lim
+    if kind == "edges":
+        for y, x in dcn_cases.dead_pixels(h, w):
+            assert torch.equal(got[0, y, x], args[4])
+
+
+@pytest.mark.cuda
+def test_deform_conv_kernel_counts_and_refuses(cuda_device):
+    args = dcn_cases.make_inputs(2, 17, 19, device=cuda_device)
+    before = deform_conv.launches
+    for i in range(3):
+        deform_conv(*args, 8)
+        assert deform_conv.launches == before + i + 1
+    x, off, mask, wgt, bias = args
+    for bad in ((x.to(torch.bfloat16), off, mask, wgt, bias),
+                (torch.cat([x, x], -1)[..., :64], off, mask, wgt, bias),
+                (x[..., :48].contiguous(), off, mask, wgt[:48, :48],
+                 bias[:48]),
+                (x, off, mask, wgt, None)):
+        with pytest.raises((TypeError, ValueError)):
+            deform_conv(*bad, 8)
+    assert deform_conv.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_k5_route_in_an_ir_window(cuda_device, monkeypatch):
+    """RefVSR_IR_MFID at its widths (30 blocks, 36 channels, EDVR-M at 64
+    with 8 groups), offset convs redrawn so that the taps fall between
+    pixels, streams a first and a further window of 32x44 frames: each
+    window runs its 20 deformable convolutions on K5, a ``refvsr.k5`` span
+    inside each ``refvsr.dcn``, and its SR frame lies within the cell's
+    ``sr_rmse`` limit (1e-5) of the same window on the row-gather path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.models import edvr
+    from refvsr_tpu_torch.models.edvr import ModulatedDCNPack
+    from refvsr_tpu_torch.models.refvsr import build_refvsr
+    cfg = get_config("RefVSR_IR_MFID")
+    assert (cfg.num_blocks, cfg.mid_channels) == (30, 36)
+    net = build_refvsr(cfg, device="cpu", seed=3)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, ModulatedDCNPack):
+                m.conv_offset.weight.copy_(torch.randn(
+                    m.conv_offset.weight.shape, generator=g) * 0.02)
+    t = cfg.frame_num
+    lrs = torch.rand((1, t + 1, 32, 44, 3), generator=g)
+    refs = torch.rand((1, t + 1, 32, 44, 3), generator=g)
+
+    def stream(route):
+        runner = StreamRunner(net, None, device=cuda_device,
+                              keyframe_stride=cfg.keyframe_stride)
+        outs, counts = [], []
+        for wi in range(2):
+            before = deform_conv.launches
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                outs.append(runner.process(lrs[:, wi:wi + t],
+                                           refs[:, wi:wi + t], wi == 0)[0])
+            spans = [e for e in prof.events()
+                     if e.name in ("refvsr.dcn", "refvsr.k5")]
+            assert all(e.cpu_parent.name == "refvsr.dcn" for e in spans
+                       if e.name == "refvsr.k5")
+            counts.append((sum(e.name == "refvsr.dcn" for e in spans),
+                           sum(e.name == "refvsr.k5" for e in spans),
+                           deform_conv.launches - before))
+        return outs, counts
+
+    got, counts = stream(True)
+    assert counts == [(20, 20, 20)] * 2
+    monkeypatch.setattr(edvr, "takes_k5", lambda *a: False)
+    want, counts = stream(False)
+    assert counts == [(20, 0, 0)] * 2
+    for a, b in zip(got, want):
+        assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-5
 
 
 @pytest.mark.cuda

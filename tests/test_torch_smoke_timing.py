@@ -150,7 +150,7 @@ def test_a_pass_with_no_device_event_is_run_again(monkeypatch, empty, want):
 # what smoke() must clock, in order: every phase, the captured calls'
 # moves to the host (summed) and their replay against the plain versions
 PHASES = ["build", "k1", "k2", "k1_backward", "k2_backward", "microbench",
-          "small_agreement", "small_training", "ir_small", "main_path",
+          "k5", "small_agreement", "small_training", "ir_small", "main_path",
           "serving", "pipelined", "spatial", "ddp", "training", "to_host",
           "bench_train", "train_entry", "ir_eval", "eval_cli_8k",
           "ir_train", "train_cli_ddp", "path_cases"]
@@ -160,6 +160,7 @@ STUBS = {
     "phase_k2": [],
     "phase_k1_backward": [], "phase_k2_backward": [],
     "phase_microbench": ({}, {"conv3x3_bias": ({}, [])}),
+    "phase_k5": ({}, []),
     "phase_small_agreement": None,
     "phase_small_training": None, "phase_ir_small": None,
     "phase_main_path": ({}, {}, {}, {}, {}, []),
