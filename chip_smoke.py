@@ -20,28 +20,14 @@ outside a checkout of the repository. Phases, each fatal on failure:
    neighbours' (dx and dflow); K2's at the training shape (f32), the
    serving shape (bf16, 1,000 duplicated ref rows), the training shape with
    every LR row picking one ref row, and with only lr_p's gradient asked
-   for. Each case reports its call's CUDA-event time, its device time
-   (one ``torch.profiler`` pass: the launcher's clear of the f32 dx or
-   d_ref, the kernel and any cast, the work its bound counts) and its
-   kernel's alone;
-6. the microbenchmark paths (K4's only caller; K3 is also in the bf16
-   inference path, phases 8 and 9): the entry points
-   ``bench.microbench_conv.run`` (K3 ``conv3x3_bias`` at 1080x1920x48 bf16
-   beside cuDNN's conv with and without bias, and the device kernels each
-   library call launches) and ``bench.microbench_gather.run`` (K4
-   ``gather_rows``, R 2048, L 128 bf16, P 2^20, beside ``index_select``),
-   each driven with the launch counts set to 0 just before and read just
-   after; then K3 against its plain version at ragged shapes and K4's check
-   mode (f32 and bf16, indices out of range on both sides); then K5
-   ``deform_conv`` against its plain version at the IR cell's shapes (C 64,
-   8 groups, N = 3 and 2 keyframes at 272x480, 136x240 and 68x120, x a
-   frame slice) and with dead, edge, integer and NaN taps at small shapes
-   of every width it takes, each cell shape timed beside the plain
-   version, the row-gather path it replaced and its bound;
-7. small-input agreement checks: the port on the card (f32, kernels)
+   for. Each case logs its largest errors against their tolerances;
+   then K3's and K4's microbenchmark entry points at their default sizes,
+   each launching its own kernel and no other, K3 within its envelope, K4
+   equal to its plain version, and K4's check cases;
+6. small-input agreement checks: the port on the card (f32, kernels)
    against the port on the CPU (f32, plain versions), for the stream and
    for one training step (losses and gradients);
-8. the streaming path at full width through the bench's stream leg
+7. the streaming path at full width through the bench's stream leg
    (``bench/e2e.run_stream``, what ``python -m refvsr_tpu_torch.bench.e2e``
    runs): RefVSR_MFID_8K (30 blocks, 48 channels, seeded random weights,
    bf16) streaming a seeded 1080p window of 7 frames into 4320x7680 frames
@@ -49,23 +35,21 @@ outside a checkout of the repository. Phases, each fatal on failure:
    ``forward_stream`` windows and the bench's numerics gate, its record
    checked (keys, metric ``stream_fps_8k``, ``out_shape``, 10 K1 and 1 K2
    launches a window) and logged, each kernel's launches counted (K3 for
-   the square 3x3 convolutions ``blocks.takes_k3`` admits); then one
-   more streamed window traced by ``torch.profiler`` (each kernel's device
-   time inside the path), and each kernel held against its plain version
-   on the inputs the path gave it: every call of a further streamed window
-   (K3's each as it runs, within 2^-7 |plain| + 2^-8 max|plain|, every
-   shape it is given timed alone once beside the plain version and the
-   library conv), and the calls of a new first window at the shapes the
-   streamed window lacks (K1 from the low-res grid to the 2x one; K2 at
-   batch 7);
-9. the serving path: ``serving.predictor.Predictor`` (RefVSR_MFID_8K,
+   the square 3x3 convolutions ``blocks.takes_k3`` admits); then each
+   kernel held against its plain version on the inputs the path gave it:
+   every call of a further streamed window (K3's each as it runs, its
+   bias-free sum within 2^-7 |plain| + 2^-8 max|plain| and its epilogue
+   bit for bit, as many calls held as K3's launch count rose), and the
+   calls of a new first window at the shapes the streamed window lacks (K1
+   from the low-res grid to the 2x one; K2 at batch 7);
+8. the serving path: ``serving.predictor.Predictor`` (RefVSR_MFID_8K,
    seeded random weights, bf16) on a seeded 1080x1920 PNG pair that the
    port's encoder writes, center-cropped to 720x1280: three ``predict``
    calls with each kernel's launches counted (K1, K2 and K3), the output
    PNG decoded by the port's reader and checked ((2880, 5120, 3), finite,
    non-constant), the PNG decode and encode timed apart; then the K1 and
    K2 calls of one more ``predict`` held against their plain versions;
-10. the pipelined stream (``pipeline_lanes`` = 2): first at a small input,
+9. the pipelined stream (``pipeline_lanes`` = 2): first at a small input,
    the tiny net (2 blocks, 8 channels, T = 7, f32) pipelined on the card
    against the plain stream on the card and the pipelined one on the CPU
    (one first window, one priming dispatch, three steady dispatches and the
@@ -78,15 +62,16 @@ outside a checkout of the repository. Phases, each fatal on failure:
    and max |difference| on the [0, 1] output within PIPE_MEAN_LIMIT and
    PIPE_MAX_LIMIT); the K1 and K2 calls of the flush dispatch held against
    their plain versions;
-11. the training path at full width: RefVSR_MFID_8K trained as the JAX
+10. the training path at full width: RefVSR_MFID_8K trained as the JAX
    package trains it (loss '1*L1_lf+0.1*MFID_ref' at relu4_4, f32, patch
    128, 7 frames, Adam with global-norm clipping and the CA schedule) on a
    seeded synthetic batch, at batch 2 instead of the config's 8 (batch 8
    does not fit one card). One ``Trainer.iteration`` (9 optimizer steps)
-   with the four kernels' launches counted; then one more step traced by
-   ``torch.profiler`` (where the step's time goes), each kernel held
-   against its plain version on the inputs that step gave it;
-12. the training entry point at full width: a seeded 1080x1920 PNG tree
+   with the four kernels' launches counted; then one more step, each
+   kernel held against its plain version on the inputs that step gave it
+   (the backward kernels' launches over the step equal to the calls
+   captured);
+11. the training entry point at full width: a seeded 1080x1920 PNG tree
    (train: one clip of 18 frames per camera, two samples; valid: 1 frame)
    written by the port's encoder (as every tree here, on a pool of
    HOST_WORKERS processes); ``TrainLoader`` timed per batch on it (on that
@@ -108,33 +93,31 @@ outside a checkout of the repository. Phases, each fatal on failure:
    first step's backward calls captured, and one is_amp window of a tiny
    net on the card against the CPU.
 
-13. small-input agreement of RefVSR-IR (run with phase 7): the tiny IR
+12. small-input agreement of RefVSR-IR (run with phase 6): the tiny IR
    net (2 blocks, 8 channels, EDVR-M at 64 channels, T = 5, offsets
    redrawn so that the deformable convolutions sample between pixels) on
    the card against the CPU through ``StreamRunner(keyframe_stride)``: a
    first window and two streamed ones within 1e-3, 18 K1 and 1 K2 launches
    each; one tiny RefVSR_IR_MFID ``Trainer.iteration`` (2 steps) with its
    mean errors against the CPU's;
-14. the IR net's evaluation entry point at full width:
+13. the IR net's evaluation entry point at full width:
    ``refvsr_tpu_torch.run.main(["--config", "config_RefVSR_IR_MFID",
    "--eval_mode", "quan_qual", ...])`` (30 blocks, 36 channels, T = 9,
    f32, seeded random weights) on a seeded RealMCVSR-layout tree (LRx4
    270x480 in, HR 1080x1920 ground truth; two videos of 5 and 1 frames)
-   written by the port's PNG encoder: ms per window on the host, one
-   window traced (device time, idle share, top kernels), the EDVR refill
-   and the plain deformable convolutions timed apart in another, the
-   peak, 32 K1 and 1 K2 launches per window, the score file (a line per
+   written by the port's PNG encoder: ms per window on the host, the peak,
+   32 K1, 1 K2 and 20 K5 launches per window, the score file (a line per
    frame, a MEAN line, a TOTAL line) and every PNG/JPEG dump decoded or
    read back at its shape; then ``--eval_mode FOV`` and ``conf`` on the
    second video, their files checked;
-15. the same CLI on RefVSR_MFID_8K: quan_qual with --quantitative_only on
+14. the same CLI on RefVSR_MFID_8K: quan_qual with --quantitative_only on
    a 1080p tree of 2 frames (f32, the metrics on the SR frame downscaled
    by 1/4 on the card), the launches and the score file checked;
-16. one RefVSR_IR_MFID ``Trainer.iteration`` at full width and the
+15. one RefVSR_IR_MFID ``Trainer.iteration`` at full width and the
    config's batch of 8 (patch 64, T = 9, 5 steps, f32): ms per step and
    the peak; one more step with every kernel's inputs captured.
 
-17. the multi-rank paths, each on two processes sharing the card over
+16. the multi-rank paths, each on two processes sharing the card over
    gloo (the machine has one card, and NCCL refuses two ranks on one
    device; times are two-ranks-on-one-card times): the H-sharded 8K
    stream (RefVSR_MFID_8K bf16, halo 32, a first and two streamed
@@ -147,47 +130,41 @@ outside a checkout of the repository. Phases, each fatal on failure:
    and the one-rank stream's on K3, as production runs them), with the
    difference's profile by output row (at
    the band seam or away from it); a control with no halo (a first and one
-   streamed window) must fail that check; after phase 10's policy, the
+   streamed window) must fail that check; after phase 9's policy, the
    data-parallel step (RefVSR_MFID_8K f32, TF32 off, batch 1 a rank, the
    contextual loss's choices held to the one-rank run's): window 0's
    averaged gradients against one rank's on the batch of 2, the
    parameters equal on both ranks after the update and after two timed
-   steps, the launches and peaks; after phase 15, the same eval CLI with
+   steps, the launches and peaks; after phase 14, the same eval CLI with
    ``--spatial_devices 2`` (``run.main`` spawns the ranks), its score
    lines against the one-rank run's; and last ``run.main(["--is_train",
    "--devices", "2", ...])`` on RefVSR_MFID (full width, -b 2) over a
    small seeded tree: rank 0's log tree and checkpoint, and no file opened
    for writing by rank 1.
 
-18. the bench's train leg (``bench/e2e.run_train``, run after phase 11):
+17. the bench's train leg (``bench/e2e.run_train``, run after phase 10):
    RefVSR_MFID at full width, its full loss, patch 64, batch 1, one
    window, an untimed and four timed ``Trainer.iteration`` calls with the
    launches counted, under PyTorch's default f32 policy as the bench runs;
-   its fields merged into phase 8's record and the bench's record logged
+   its fields merged into phase 7's record and the bench's record logged
    on a line of its own; then one more iteration with every kernel's
    inputs captured.
 
-The calls captured in phases 14 to 16 and 18 (each new shape of one
-streamed IR window and of the 8K CLI's first window; every backward call
-of one IR step and of the bench's train step, its forward calls once per
-shape) are held against the plain versions with the others. The paths'
-launches appear in ``launches_by_path`` as ``ir_eval``, ``eval_cli``,
-``ir_train`` and ``bench`` (the train leg; the stream leg's are
-``stream``), and phase 17's as ``spatial`` and ``ddp`` (summed over the
-ranks); the banded K1 has a row of its own (``warp_sample_banded``).
-Phases 14 to 16 run under PyTorch's default f32 policy, as 12 does.
+The calls captured in phases 13 to 15 and 17 (each new shape of one
+streamed IR window, K5's among them, and of the 8K CLI's first window;
+every backward call of one IR step and of the bench's train step, its
+forward calls once per shape) are held against the plain versions with
+the others. Phases 13 to 15 run under PyTorch's default f32 policy, as
+11 does.
 
-Then one ``{"kernels": [...]}`` line and, last, the device line. A kernel's
-``ms`` there is its device time in the profiled window (forward kernels:
-the streamed window; backward kernels: the training step); ``plain_ms``,
-``library_ms`` and ``bound_ms`` are summed over the captured window's or
-step's calls; the calls captured in phases 9, 10 and 12 are further cases
-of each row. K3's and K4's ``ms``, ``plain_ms`` and ``library_ms`` are
-CUDA-event times of one call each at their microbenchmark's default
-shape. f32 comparisons run with TF32 off for both matmuls and cuDNN
-convolutions; the full-width training runs under PyTorch's default f32
-policy (TF32 for cuDNN convolutions, not for matmuls), as a user's trainer
-would.
+Then one JSON line of the phases' summaries, the seconds of each phase
+and, last, the device line. f32 comparisons run with TF32 off for both
+matmuls and cuDNN convolutions; the full-width training runs under
+PyTorch's default f32 policy (TF32 for cuDNN convolutions, not for
+matmuls), as a user's trainer would. Kernel times are the benchmark's
+(``benchmark/run.py --trace 1``) and the microbenchmarks'
+(``refvsr_tpu_torch/bench/microbench_*.py``); the smoke opens no profiler
+session.
 """
 
 from __future__ import annotations
@@ -196,13 +173,11 @@ import contextlib
 import json
 import os
 import sys
-import threading
 import time
 
 import numpy as np
 import torch
 
-from refvsr_tpu_torch.bench import bound_ms, cuda_ms, device_kernels
 from refvsr_tpu_torch.bench.e2e import card_line
 from refvsr_tpu_torch.bench.probe_amp import amp_window
 from refvsr_tpu_torch.bench.probe_amp import compare as amp_compare
@@ -219,10 +194,6 @@ K2_SHAPE = (32400, 129600, 144, 1000)
 # 2 x 7 frames' 32x32 LR features against 32x32 ref features
 TRAIN_BATCH = 2
 K2_TRAIN_SHAPE = (2 * T, 1024, 1024, 144, 16)
-# the largest K2 similarity matrix the matmul + max yardstick materialises;
-# past it, the yardstick runs one batch element at a time (an f32 element
-# of the 1080p validation's batch is 16.8 GB, which the 80 GB card holds)
-K2_LIBRARY_MAX_BYTES = 20e9
 # the training phases start from seeded random weights: no pretrained
 # SPyNet or VGG19 is read (the Trainer warns that they are absent)
 NO_ASSETS = dict(spynet_ckpt=None, vgg19_ckpt=None)
@@ -243,22 +214,6 @@ PIPE_FRAMES = 5
 # convolutions on K3 and the lanes' on cuDNN; the max allows 4 bf16 ulps
 # at 1.0 should another build pick another algorithm for batch 2
 PIPE_MEAN_LIMIT, PIPE_MAX_LIMIT = 1e-4, 1.6e-2
-# K3 against its plain version at ragged shapes (H, W), C
-# (tile heights 8, 4 and 2 rows by C, tiles 64 pixels wide): mid-tile in
-# H and W at every C, one row narrower than a tile, and images of more
-# tiles than the card holds blocks, so each block's halo ring wraps
-# K3 on the 8K stream's own inputs (phase 8), held in two parts. Against
-# the plain version with the bias, the envelope above read 1.153 at
-# 1080x1920x48 and 1.041 at 2160x3840x48 on the H100, max|d| 2^-8: one ulp
-# of a pre-bias sum in [0.5, 1) that the bias cancels, where max|plain| is
-# below 1, so the envelope's 2^-8 max|plain| falls short of that ulp. The
-# library conv + bias, the path before K3, is reported beside it on the
-# same calls. The bias-free sum holds the envelope, and the epilogue is
-# held bit for bit
-K3_RAGGED = (((37, 53), 16), ((25, 131), 48),
-             ((29, 101), 16), ((29, 101), 32), ((29, 101), 48),
-             ((29, 101), 64), ((29, 101), 80), ((1, 40), 48), ((1, 7), 16),
-             ((300, 700), 48), ((203, 517), 16), ((151, 450), 80))
 
 
 def log(*a):
@@ -323,73 +278,6 @@ def _finite(t):
     return bool(torch.isfinite(t.float()).all())
 
 
-def _nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-# torch.profiler passes over repeated calls (call_device_ms, forward_split)
-# and those that came back with no device event at all. On the H100 a
-# long-lived process loses whole passes so (221 of 388 in one run, most of
-# them in the replay of the captured calls; none of 9 passes in three
-# fresh processes, bench/probe_trace.py), so such a pass is run again, up
-# to PROFILER_PASSES passes
-PASSES = {"run": 0, "empty": 0}
-PROFILER_PASSES = 5
-
-
-def device_rows(fn, passes=PROFILER_PASSES):
-    """device_kernels(fn) of the first of `passes` torch.profiler passes
-    that holds a device event; [] if none does."""
-    for _ in range(passes):
-        rows = device_kernels(fn)
-        PASSES["run"] += 1
-        if rows:
-            return rows
-        PASSES["empty"] += 1
-    return []
-
-
-def call_device_ms(fn, wrapper, tag, reps=10, passes=PROFILER_PASSES):
-    """(device ms of one call of fn(), device ms of its kernel alone): means
-    over `reps` calls traced in one torch.profiler pass. The first counts
-    every device operation the calls issue: the launcher's clear of its f32
-    output, the kernel, a cast. `wrapper` is the kernel's wrapper, whose
-    ``launches`` count must rise by `reps` in a pass that shows no kernel
-    named `tag` (else the kernel was not launched: fatal); then the profiler
-    lost it, the pass is logged and run again, and after `passes` such
-    passes neither time is measured (None)."""
-    for _ in range(passes):
-        before = wrapper.launches
-        rows = device_rows(lambda: [fn() for _ in range(reps)], passes=1)
-        kernel = sum(m for name, m, _ in rows if tag in name)
-        if kernel > 0:
-            return sum(m for _, m, _ in rows) / reps, kernel / reps
-        launched = wrapper.launches - before
-        check(launched == reps,
-              f"{tag}: {launched} launches in {reps} calls of its wrapper")
-        if rows:    # an empty pass is counted in PASSES
-            log(f"profiler pass without {tag} ({launched} launches): "
-                f"device events {[(name[:60], n) for name, _, n in rows][:8]}")
-    return None, None
-
-
-def _ms(v):
-    return "not measured" if v is None else f"{v:.4f} ms"
-
-
-def forward_split(call, wrapper, tag, library):
-    """The "device (kernel) / call" split of a forward kernel's call, as
-    the backward cases have it: (device ms of a call, of its kernel alone,
-    device ms of a call of `library`), each from a torch.profiler pass of
-    10 calls (None: not measured). The call's CUDA-event time over
-    back-to-back calls is the larger of the device's and the host's per
-    call, so at tiny shapes it times the launcher; these do not."""
-    dev_ms, kernel_ms = call_device_ms(call, wrapper, tag)
-    rows = device_rows(lambda: [library() for _ in range(10)])
-    lib_ms = sum(m for _, m, _ in rows) / 10 if rows else None
-    return dev_ms, kernel_ms, lib_ms
-
-
 # ---------------------------------------------------------------- K1
 
 
@@ -422,19 +310,8 @@ def _dead(in_hw, flow):
     return ~((x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1))
 
 
-def _library_grid(in_hw, flow, dtype):
-    """grid_sample's normalised grid for the same source coordinates; NaN
-    coordinates become far-outside ones (dead either way)."""
-    from refvsr_tpu_torch.ops.kernels.warp_sample import warp_coords
-    h, w = in_hw
-    sx, sy = warp_coords((h, w), flow)
-    return torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1],
-                       -1).nan_to_num(nan=-4.0).to(dtype)
-
-
 def k1_case(name, x, flow, tol, need_dead=False):
-    """K1 kernel vs plain on one input; returns a dict of its numbers."""
-    import torch.nn.functional as F
+    """K1 kernel vs plain on one input."""
     from refvsr_tpu_torch.ops.kernels.warp_sample import (warp_sample,
                                                           warp_sample_plain)
     got = warp_sample(x, flow)
@@ -452,117 +329,34 @@ def k1_case(name, x, flow, tol, need_dead=False):
     err = float((got.float() - want.float()).abs().max())
     limit = tol * float(x.float().abs().max())
     check(err <= limit, f"K1 {name}: max |kernel - plain| {err} > {limit}")
-
-    # the library yardstick: grid_sample on the same coordinates
-    nchw = x.permute(0, 3, 1, 2)
-    grid = _library_grid((h, w), flow, x.dtype)
-
-    def library():
-        return F.grid_sample(nchw, grid, mode="bilinear",
-                             padding_mode="zeros", align_corners=False)
-
-    def call():
-        return warp_sample(x, flow)
-
-    with clock("K1 kernel"):
-        ms = cuda_ms(call)
-    with clock("K1 plain"):
-        plain_ms = cuda_ms(lambda: warp_sample_plain(x, flow), iters=1,
-                           warmup=1)
-    with clock("K1 library"):
-        library_ms = cuda_ms(library)
-    with clock("K1 device split"):
-        dev_ms, kernel_ms, lib_dev_ms = forward_split(
-            call, warp_sample, KERNEL_TAGS["warp_sample"], library)
-    nbytes = _nbytes(x, flow, got)
-    flops = 8 * got.numel()     # four corner multiply-adds per value
-    b_ms, b_by = bound_ms(nbytes, flops, x.dtype)
     log(f"K1 {name}: x {tuple(x.shape)} {x.dtype} -> {tuple(got.shape)}; "
-        f"dead {n_dead}; max_abs_err {err:.3e} (limit {limit:.3e}); "
-        f"call {ms:.4f} ms, device {_ms(dev_ms)} (kernel {_ms(kernel_ms)}), "
-        f"plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms (device "
-        f"{_ms(lib_dev_ms)}), bound {b_ms:.4f} ms ({b_by})")
-    return dict(case=name, max_abs_err=err, tolerance=limit, ms=ms,
-                device_ms=dev_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=library_ms, library_device_ms=lib_dev_ms,
-                bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops,
-                peak=x.dtype)
+        f"dead {n_dead}; max_abs_err {err:.3e} (limit {limit:.3e})")
 
 
 def phase_k1(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = []
     # UP warp of a streamed frame: (2h, 2w, 48) features onto the 2x grid
     x = torch.rand((N, 2 * H, 2 * W, 48), generator=gen, device=dev) * 2 - 1
     flow = _poison(_smooth_flow(gen, N, 2 * H, 2 * W, 12.0, dev), gen)
-    cases.append(k1_case("up bf16", x.bfloat16(), flow.bfloat16(), 2.0 ** -6,
-                         need_dead=True))
+    k1_case("up bf16", x.bfloat16(), flow.bfloat16(), 2.0 ** -6,
+            need_dead=True)
     del x, flow
     # feature warp: 48 channels + the confidence map
     x = torch.rand((N, H, W, 49), generator=gen, device=dev) * 2 - 1
     flow = _poison(_smooth_flow(gen, N, H, W, 6.0, dev), gen)
-    cases.append(k1_case("feat bf16", x.bfloat16(), flow.bfloat16(),
-                         2.0 ** -6, need_dead=True))
+    k1_case("feat bf16", x.bfloat16(), flow.bfloat16(), 2.0 ** -6,
+            need_dead=True)
     del x, flow
     # small f32 case: ragged C, output grid other than the input's
     x = torch.rand((2, 37, 53, 5), generator=gen, device=dev) * 2 - 1
     flow = _poison(_smooth_flow(gen, 2, 70, 101, 9.0, dev), gen)
-    cases.append(k1_case("small f32", x, flow, 1e-5, need_dead=True))
-    return cases
-
-
-# the shape at which K1's wrapper is taken apart on the host: the IR
-# training step's warp of x 8x64x64x36 (f32), where a call's CUDA-event
-# time lost to grid_sample's
-K1_HOST_SHAPE = (8, 64, 64, 36)
-
-
-def k1_host_pieces(dev, card):
-    """Host microseconds of a K1 call at K1_HOST_SHAPE and of its pieces
-    (``ops/kernels/warp_sample.py``: the checks, the output's
-    ``torch.empty``, the typed launcher's lookup, ``build.launch`` with the
-    ctypes call and the kernel's enqueue, the ctypes call alone), and of a
-    ``F.grid_sample`` call on the same coordinates, the device idle before
-    each round (``bench.host_us``)."""
-    import torch.nn.functional as F
-
-    from refvsr_tpu_torch.bench import host_us
-    from refvsr_tpu_torch.ops.kernels import build
-    from refvsr_tpu_torch.ops.kernels import warp_sample as k1
-    gen = torch.Generator(device=dev).manual_seed(21)
-    n, h, w, c = K1_HOST_SHAPE
-    x = torch.rand((n, h, w, c), generator=gen, device=dev)
-    flow = _smooth_flow(gen, n, h, w, 6.0, dev)
-    out = torch.empty_like(x)
-    fn = build.function("warp_sample", "warp_sample_launch", k1._FORWARD_ARGS)
-    args = (x.data_ptr(), flow.data_ptr(), out.data_ptr(), n, h, w, c, h, w,
-            k1._DTYPES[x.dtype])
-    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-    nchw = x.permute(0, 3, 1, 2)
-    grid = _library_grid((h, w), flow, x.dtype)
-    pieces = {
-        "checks": lambda: (k1._check(x, flow), k1._check_cuda(x, flow)),
-        "torch.empty": lambda: torch.empty((n, h, w, c), dtype=x.dtype,
-                                           device=x.device),
-        "build.function": lambda: build.function(
-            "warp_sample", "warp_sample_launch", k1._FORWARD_ARGS),
-        "build.launch": lambda: build.launch(fn, x.device, *args),
-        "ctypes call": lambda: fn(*args, stream),
-        "warp_sample call": lambda: k1.warp_sample(x, flow),
-        "F.grid_sample call": lambda: F.grid_sample(
-            nchw, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=False)}
-    us = {k: host_us(f) for k, f in pieces.items()}
-    log(f"K1 host pieces at x {'x'.join(map(str, K1_HOST_SHAPE))} f32 (us a "
-        f"call, median of 5 rounds of 200): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in us.items()) + f"  [{card}]")
-    return us
+    k1_case("small f32", x, flow, 1e-5, need_dead=True)
 
 
 def k1_bwd_case(name, g, flow, x_shape, x=None, need_dx=True,
                 need_dead=False):
     """K1 backward kernel vs its plain backward on one input (the
-    arguments of ``warp_sample_backward``); returns a dict of its numbers.
+    arguments of ``warp_sample_backward``).
 
     The reference is the plain backward in f32 on the same values: the
     kernel sums in f32 and rounds once. Tolerance: 1e-5 of the reference's
@@ -590,8 +384,7 @@ def k1_bwd_case(name, g, flow, x_shape, x=None, need_dx=True,
         limit[label] = tol * float(want.abs().max())
         check(err[label] <= limit[label], f"K1-bwd {name}: max |kernel - "
               f"plain| of {label} {err[label]} > {limit[label]}")
-    n, h, w, c = x_shape
-    dead = _dead((h, w), flow)
+    dead = _dead(x_shape[1:3], flow)
     n_dead = int(dead.sum())
     check(n_dead > 0 or not need_dead,
           f"K1-bwd {name}: the case has no dead points")
@@ -610,50 +403,13 @@ def k1_bwd_case(name, g, flow, x_shape, x=None, need_dx=True,
     odd = ((dx_p == 0) & (dx != 0) if need_dx
            else torch.zeros((), dtype=torch.bool))
     worst = float(dx[odd].float().abs().max()) if bool(odd.any()) else 0.0
-
-    def call():
-        return warp_sample_backward(g, flow, x_shape, x, need_dx)
-
-    # host work dominates these calls and the host is shared: 50 calls
-    ms = cuda_ms(call, iters=50)
-    dev_ms, kernel_ms = call_device_ms(
-        call, warp_sample_backward, KERNEL_TAGS["warp_sample_backward"])
-    plain_ms = cuda_ms(lambda: warp_sample_backward_plain(
-        g, flow, x_shape, x), iters=3)
-    # the library yardstick: grid_sample's backward on the same coordinates
-    inp = (x if x is not None else torch.zeros(x_shape, dtype=g.dtype,
-                                               device=g.device))
-    inp = inp.permute(0, 3, 1, 2)
-    g_nchw = g.permute(0, 3, 1, 2)
-    grid = _library_grid((h, w), flow, g.dtype)
-    mask = [need_dx, x is not None]
-    library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-        g_nchw, inp, grid, 0, 0, False, mask), iters=50)
-    # bytes: flow and g in, dx out; x in and dflow out when dflow is asked
-    nbytes = _nbytes(flow, g)
-    flops = 0
-    if need_dx:
-        nbytes += n * h * w * c * g.element_size()
-        flops += 8 * g.numel()      # four multiply-adds per value
-    if x is not None:
-        nbytes += _nbytes(x, flow)
-        flops += 14 * g.numel()     # corner differences and their weights
-    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
     log(f"K1-bwd {name}: g {tuple(g.shape)} {g.dtype} -> "
         + " + ".join((["dx " + str(tuple(x_shape))] if need_dx else [])
                      + (["dflow"] if x is not None else []))
         + f"; dead {n_dead}; max_abs_err "
         + ", ".join(f"{k} {err[k]:.3e} (limit {limit[k]:.3e})" for k in err)
         + f"; plain-zero dx entries nonzero here {int(odd.sum())} (max "
-        f"{worst:.3e}); call {ms:.4f} ms, device {_ms(dev_ms)} (kernel "
-        f"{_ms(kernel_ms)}), "
-        f"plain {plain_ms:.4f} ms, grid_sampler_2d_backward "
-        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(case=name, max_abs_err=max(err.values()),
-                tolerance=max(limit.values()), ms=ms, device_ms=dev_ms,
-                kernel_ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                nbytes=nbytes, flops=flops, peak=torch.float32)
+        f"{worst:.3e})")
 
 
 def _far_flow(gen, n, ho, wo, amp, dev):
@@ -665,7 +421,6 @@ def _far_flow(gen, n, ho, wo, amp, dev):
 
 def phase_k1_backward(dev):
     gen = torch.Generator(device=dev).manual_seed(6)
-    cases = []
     # name, x (n, h, w, c), output grid (ho, wo), flow maker and amplitude,
     # dtype, whether dflow is asked for
     for name, (n, h, w, c), (ho, wo), (make, amp), dt, dflow in (
@@ -683,11 +438,9 @@ def phase_k1_backward(dev):
         x = (torch.rand((n, h, w, c), generator=gen, device=dev) * 2 - 1)
         flow = _poison(make(gen, n, ho, wo, amp, dev), gen)
         g = torch.rand((n, ho, wo, c), generator=gen, device=dev) * 2 - 1
-        cases.append(k1_bwd_case(name, g.to(dt), flow.to(dt), tuple(x.shape),
-                                 x.to(dt) if dflow else None,
-                                 need_dead=True))
+        k1_bwd_case(name, g.to(dt), flow.to(dt), tuple(x.shape),
+                    x.to(dt) if dflow else None, need_dead=True)
         del x, flow, g
-    return cases
 
 
 # ---------------------------------------------------------------- K2
@@ -709,22 +462,16 @@ def _k2_inputs(gen, n, l_ref, l_lr, d, dup, dtype, dev):
 # ragged sizes for K2's planted ties (refvsr_tpu_torch.bench.ties), not
 # multiples of any tile: (n, L_ref, L_lr, D)
 K2_TIE_SHAPE = (3, 1000, 3001, 144)
-# K2 calls up to this many ms (CUDA events) also get the "device (kernel)
-# / call" split: ten more calls of the kernel and of its yardstick
-K2_SPLIT_MS = 5.0
 
 
-def k2_case(name, ref, lr, dup=0, first=(), iters=5, plain_iters=2,
-            split=True):
-    """K2 kernel vs plain on one input; returns a dict of its numbers.
-    conf within 1e-4; the kernel's pick scores within 1e-4 of the max (so
-    picks may differ only where the top-2 gap is <= 1e-4); the last `dup`
-    ref rows, copies of the first ones, never win; LR row i picks
-    `first[i]`. With `split`, a call of at most K2_SPLIT_MS also gets the
-    "device (kernel) / call" split."""
+def k2_case(name, ref, lr, dup=0, first=()):
+    """K2 kernel vs plain on one input. conf within 1e-4; the kernel's pick
+    scores within 1e-4 of the max (so picks may differ only where the
+    top-2 gap is <= 1e-4); the last `dup` ref rows, copies of the first
+    ones, never win; LR row i picks `first[i]`."""
     from refvsr_tpu_torch.ops.kernels.argmax_matmul import (
         argmax_matmul, argmax_matmul_plain)
-    n, l_ref, d = ref.shape
+    n, l_ref = ref.shape[:2]
     l_lr = lr.shape[1]
     conf, idx = argmax_matmul(ref, lr)
     conf_p, idx_p = argmax_matmul_plain(ref, lr)
@@ -752,94 +499,34 @@ def k2_case(name, ref, lr, dup=0, first=(), iters=5, plain_iters=2,
         got = idx[:, :len(first)]
         check(bool((got == want).all()), f"K2 {name}: planted ties picked "
               f"{got.tolist()}, not {list(first)}")
-
-    def call():
-        return argmax_matmul(ref, lr)
-
-    # the library yardstick, two calls: the whole similarity by matmul, then
-    # its row max; only where that matrix fits beside the inputs
-    sim_bytes = n * l_lr * l_ref * ref.element_size()
-    if sim_bytes > K2_LIBRARY_MAX_BYTES:
-        # 250-320 ms a call on the H100: the kernel and the yardstick are
-        # timed once after one warm-up, as the plain version is
-        iters = 1
-    with clock("K2 kernel"):
-        ms = cuda_ms(call, iters=iters, warmup=1)
-    with clock("K2 plain"):
-        plain_ms = cuda_ms(lambda: argmax_matmul_plain(ref, lr),
-                           iters=plain_iters, warmup=1)
-    library = None
-    if sim_bytes <= K2_LIBRARY_MAX_BYTES:
-        def library():
-            return torch.matmul(lr, ref.transpose(1, 2)).max(dim=2)
-    elif sim_bytes / n <= K2_LIBRARY_MAX_BYTES:
-        # 2n calls: one batch element's similarity fits, the whole does not
-        def library():
-            for b in range(n):
-                torch.matmul(lr[b], ref[b].T).max(dim=1)
-    library_ms = None
-    if library is not None:
-        with clock("K2 library"):
-            library_ms = cuda_ms(library, iters=iters, warmup=1)
-    dev_ms = kernel_ms = lib_dev_ms = None
-    split = split and ms <= K2_SPLIT_MS and library is not None
-    if split:
-        with clock("K2 device split"):
-            dev_ms, kernel_ms, lib_dev_ms = forward_split(
-                call, argmax_matmul, KERNEL_TAGS["argmax_matmul"], library)
-    nbytes = (ref.numel() + lr.numel()) * ref.element_size() + n * l_lr * 8
-    # f32 runs three TF32 products per product (3xTF32)
-    f32 = ref.dtype == torch.float32
-    peak = "tf32" if f32 else ref.dtype
-    flops = (3 if f32 else 1) * 2.0 * n * l_lr * l_ref * d
-    b_ms, b_by = bound_ms(nbytes, flops, peak)
-    lib = ("not run: the similarity would be "
-           f"{sim_bytes / 1e9:.1f} GB" if library_ms is None
-           else f"{library_ms:.3f} ms" + (
-               f" (one batch element at a time, {2 * n} calls)"
-               if sim_bytes > K2_LIBRARY_MAX_BYTES else ""))
     log(f"K2 {name}: ref {tuple(ref.shape)} x lr {tuple(lr.shape)} "
         f"{ref.dtype}; max_abs_err {err:.3e} (limit 1e-4); indices "
         f"differing from plain {n_diff} (all within 1e-4 of the max; worst "
-        f"{gap:.3e}); call {ms:.3f} ms"
-        + (f", device {_ms(dev_ms)} (kernel {_ms(kernel_ms)})" if split
-           else "")
-        + f", plain {plain_ms:.3f} ms, matmul + max {lib}"
-        + (f" (device {_ms(lib_dev_ms)})" if split else "")
-        + f", bound {b_ms:.4f} ms ({b_by}, {peak})")
-    return dict(case=name, max_abs_err=err, tolerance=1e-4, ms=ms,
-                device_ms=dev_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=library_ms, library_device_ms=lib_dev_ms,
-                bound_ms=b_ms, bound_by=b_by, index_differs=n_diff,
-                nbytes=nbytes, flops=flops, peak=peak)
+        f"{gap:.3e})")
 
 
 def phase_k2(dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     l_ref, l_lr, d, dup = K2_SHAPE
     ref, lr = _k2_inputs(gen, 1, l_ref, l_lr, d, dup, torch.bfloat16, dev)
-    cases = [k2_case("synthetic bf16", ref, lr, dup=dup)]
+    k2_case("synthetic bf16", ref, lr, dup=dup)
     del ref, lr
     ref, lr, first = tied_rows(np.random.default_rng(2), *K2_TIE_SHAPE)
     for dt in (torch.bfloat16, torch.float32):
-        cases.append(k2_case(f"ties {str(dt)[6:]}",
-                             torch.from_numpy(ref).to(dev, dt),
-                             torch.from_numpy(lr).to(dev, dt),
-                             first=first.tolist()))
-    return cases
+        k2_case(f"ties {str(dt)[6:]}", torch.from_numpy(ref).to(dev, dt),
+                torch.from_numpy(lr).to(dev, dt), first=first.tolist())
 
 
 def k2_bwd_case(name, ref, lr, index, g, needs=(True, True), dup=0):
     """K2 backward kernel vs its plain backward on the card (the arguments
-    of ``argmax_matmul_backward``); returns a dict of its numbers. d_lr is
-    one f32 product rounded once in both, so within 1e-6 of its largest
-    magnitude; d_ref within 1e-5 of it in f32 and 2**-7 in bf16 (f32
-    atomics in another order, then one rounding). A gradient that `needs`
+    of ``argmax_matmul_backward``). d_lr is one f32 product rounded once in
+    both, so within 1e-6 of its largest magnitude; d_ref within 1e-5 of it
+    in f32 and 2**-7 in bf16 (f32 atomics in another order, then one
+    rounding). A gradient that `needs`
     (for ref, lr) does not ask for must be None. The last `dup` ref rows
     never won, so they get exact zeros."""
     from refvsr_tpu_torch.ops.kernels.argmax_matmul import (
         argmax_matmul_backward, argmax_matmul_backward_plain)
-    n, l_ref, d = ref.shape
     d_ref, d_lr = argmax_matmul_backward(ref, lr, index, g, needs)
     d_ref_p, d_lr_p = argmax_matmul_backward_plain(ref, lr, index, g)
     torch.cuda.synchronize()
@@ -862,62 +549,14 @@ def k2_bwd_case(name, ref, lr, index, g, needs=(True, True), dup=0):
     if dup and needs[0]:
         check(bool((d_ref[:, -dup:] == 0).all()),
               f"K2-bwd {name}: duplicated ref rows got a gradient")
-
-    def call():
-        return argmax_matmul_backward(ref, lr, index, g, needs)
-
-    ms = cuda_ms(call, iters=50)    # as for K1-bwd: mostly host work
-    dev_ms, kernel_ms = call_device_ms(
-        call, argmax_matmul_backward, KERNEL_TAGS["argmax_matmul_backward"])
-    plain_ms = cuda_ms(lambda: argmax_matmul_backward_plain(ref, lr, index,
-                                                            g), iters=3)
-    # the library yardstick, two calls: the picked ref rows' gather and the
-    # scatter-add of the LR rows into d_ref
-    rows = (index.long() + torch.arange(n, device=ref.device)[:, None]
-            * l_ref).reshape(-1)
-    ref_flat, lr_flat = ref.reshape(-1, d), lr.reshape(-1, d)
-    acc = torch.zeros_like(ref_flat)
-
-    def library():
-        if needs[1]:
-            ref_flat.index_select(0, rows)
-        if needs[0]:
-            acc.index_add_(0, rows, lr_flat)
-
-    library_ms = cuda_ms(library, iters=50)
-    # bytes: index and g in; the picked ref rows in and d_lr out for d_lr;
-    # lr in and d_ref out for d_ref
-    picked = int(torch.unique(rows).numel())
-    es = ref.element_size()
-    nbytes = _nbytes(index, g)
-    flops = 0
-    if needs[1]:
-        nbytes += picked * d * es + _nbytes(d_lr)
-        flops += lr.numel()
-    if needs[0]:
-        nbytes += _nbytes(lr, d_ref)
-        flops += 2 * lr.numel()
-    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
-    lib = " + ".join(k for k, need in (("index_select", needs[1]),
-                                       ("index_add_", needs[0])) if need)
     log(f"K2-bwd {name}: ref {tuple(ref.shape)}, lr {tuple(lr.shape)} "
-        f"{ref.dtype}; {picked} ref rows picked; max_abs_err "
-        + ", ".join(f"{k} {err[k]:.3e} (limit {limit[k]:.3e})" for k in err)
-        + f"; call {ms:.4f} ms, device {_ms(dev_ms)} (kernel "
-        f"{_ms(kernel_ms)}), plain "
-        f"{plain_ms:.4f} ms, {lib} {library_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
-    return dict(case=name, max_abs_err=max(err.values()),
-                tolerance=max(limit.values()), ms=ms, device_ms=dev_ms,
-                kernel_ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                nbytes=nbytes, flops=flops, peak=torch.float32)
+        f"{ref.dtype}; max_abs_err "
+        + ", ".join(f"{k} {err[k]:.3e} (limit {limit[k]:.3e})" for k in err))
 
 
 def phase_k2_backward(dev):
     from refvsr_tpu_torch.ops.kernels.argmax_matmul import argmax_matmul
     gen = torch.Generator(device=dev).manual_seed(7)
-    cases = []
     for name, (n, l_ref, l_lr, d, dup), dt in (
             ("train f32", K2_TRAIN_SHAPE, torch.float32),
             ("serve bf16", (1, *K2_SHAPE), torch.bfloat16)):
@@ -926,159 +565,48 @@ def phase_k2_backward(dev):
         check(int((index >= l_ref - dup).sum()) == 0,
               f"K2-bwd {name}: a tie went to the later duplicate")
         g = torch.randn((n, l_lr), generator=gen, device=dev)
-        cases.append(k2_bwd_case(name, ref, lr, index, g, dup=dup))
+        k2_bwd_case(name, ref, lr, index, g, dup=dup)
         if name == "train f32":
             # every LR row of a batch item picks one ref row: all of its
             # reductions meet on one row of d_ref
             one = torch.full_like(index, l_ref // 2)
-            cases.append(k2_bwd_case("train f32, one ref row takes all",
-                                     ref, lr, one, g))
+            k2_bwd_case("train f32, one ref row takes all", ref, lr, one, g)
             # only lr_p requires grad: no d_ref is made
-            cases.append(k2_bwd_case("train f32, lr_p's gradient only", ref,
-                                     lr, index, g, needs=(False, True)))
+            k2_bwd_case("train f32, lr_p's gradient only", ref, lr, index, g,
+                        needs=(False, True))
         del ref, lr, index, g
-    return cases
 
 
-# ------------------------------------------------- K3 and K4 (microbenchmarks)
-
-
-def phase_microbench(card):
-    """K3's and K4's paths: their microbenchmark entry points at the default
-    sizes, each driven with every launch count set to 0 just before and
-    read just after; then K3 at ragged shapes and K4's check mode, whose
-    launches only compare the kernels with their plain versions. Returns
-    (launches by path, {kernel: (default-size numbers, every case)})."""
+def phase_bench_entries():
+    """K3's and K4's microbenchmark entry points at their default sizes,
+    each with every launch count set to 0 just before and read just after
+    (each launches its own kernel and no other): K3 finite and within its
+    envelope, K4 equal to its plain version; then K4's check cases, one of
+    them with clamped indices. The scripts time the kernels; the smoke
+    reads none of their times."""
     from refvsr_tpu_torch.bench import microbench_conv, microbench_gather
-    launches, main = {}, {}
-    for path, run in (("microbench_conv", microbench_conv.run),
-                      ("microbench_gather", microbench_gather.run)):
+    res = {}
+    for path, name, run in (
+            ("microbench_conv", "conv3x3_bias",
+             lambda: microbench_conv.run(iters=3, trace=False, log=log)),
+            ("microbench_gather", "gather_rows",
+             lambda: microbench_gather.run(log=log))):
         reset_launches()
-        main[path] = run(log=log)
-        launches[path] = read_launches()
-        name = BENCH_FNS[path]
-        check(launches[path][name] > 0 and not any(
-            v for k, v in launches[path].items() if k != name),
-            f"{path}: launches {launches[path]}")
-    conv, gather = main["microbench_conv"], main["microbench_gather"]
-    conv_cases = [conv] + [microbench_conv.run(
-        size, c, iters=3, trace=False, log=log) for size, c in K3_RAGGED]
-    for case in conv_cases:
-        check(case["finite"] and case["ratio"] <= 1.0,
-              f"K3 {case['shape']}: |kernel - plain| at {case['ratio']:.3f} "
-              f"of the envelope 2^-7 |plain| + 2^-8 max|plain|")
+        res[path] = run()
+        launches = read_launches()
+        check(launches[name] > 0 and not any(
+            v for k, v in launches.items() if k != name),
+            f"{path}: launches {launches}")
+    conv, gather = res["microbench_conv"], res["microbench_gather"]
+    check(conv["finite"] and conv["ratio"] <= 1.0,
+          f"K3 {conv['shape']}: |kernel - plain| at {conv['ratio']:.3f} of "
+          f"the envelope 2^-7 |plain| + 2^-8 max|plain|")
     check(gather["equal"], "K4 at the default size: kernel != plain")
-    gather_cases = [gather] + microbench_gather.check(log=log)
-    check(all(c["equal"] for c in gather_cases),
+    cases = microbench_gather.check(log=log)
+    check(all(c["equal"] for c in cases),
           "K4: kernel != plain in a check case")
-    check(any(c.get("clamped") for c in gather_cases),
-          "K4: no case clamped an index")
+    check(any(c["clamped"] for c in cases), "K4: no case clamped an index")
     torch.cuda.empty_cache()
-    log(json.dumps(dict(microbench=dict(
-        card=card, launches=launches, conv=conv, gather=gather))))
-    return launches, {"conv3x3_bias": (conv, conv_cases),
-                      "gather_rows": (gather, gather_cases)}
-
-
-# ---------------------------------------------------------------- K5
-
-
-def phase_k5(dev):
-    """K5 ``deform_conv`` against its plain version at the IR cell's
-    shapes (C 64, 8 groups, x the middle frame of an (N, 5, H, W, C)
-    tensor, fractional offsets; ``bench/dcn_cases.py``), and at small
-    shapes with dead taps (far outside, anchors on exactly -1 and H - 1,
-    integer and NaN offsets, a NaN tap held against the plain version given
-    a far one; the dead pixels exactly the bias), within 1e-5 of the
-    largest plain output. Each cell shape's kernel, plain-version and
-    row-gather-path (``edvr._deform_conv_rows``, the route before K5)
-    times by CUDA events, beside its bound (bytes at 3.35 TB/s against
-    operations at the TF32 rate, the benchmark's yardstick) and the f32
-    FMA floor (operations at 67 TFLOP/s). Returns (one 3-keyframe IR
-    frame's 20 calls, summed from the N = 3 shapes; every case)."""
-    from refvsr_tpu_torch.bench import PEAK_FLOPS
-    from refvsr_tpu_torch.bench.dcn_cases import (FRAMES, LEVELS,
-                                                  dead_for_nan, dead_pixels,
-                                                  make_inputs)
-    from refvsr_tpu_torch.models import edvr
-    from refvsr_tpu_torch.ops.kernels.deform_conv import deform_conv
-    cases, frame = [], dict(ms=0.0, plain_ms=0.0, rows_ms=0.0, nbytes=0,
-                            flops=0.0, max_abs_err=0.0)
-    for n in (3, 2):
-        for h, w, calls in LEVELS:
-            args = make_inputs(n, h, w, seed=n * h, device=dev,
-                               frames=FRAMES)
-            got = deform_conv(*args, 8)
-            want = edvr.modulated_deform_conv_plain(*args, 8)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            limit = 1e-5 * float(want.abs().max())
-            check(err <= limit, f"K5 {n}x{h}x{w}: max |kernel - plain| "
-                  f"{err} > {limit}")
-            del got, want
-            with clock("K5 kernel"):
-                ms = cuda_ms(lambda: deform_conv(*args, 8), iters=20)
-            with clock("K5 plain"):
-                plain_ms = cuda_ms(
-                    lambda: edvr.modulated_deform_conv_plain(*args, 8),
-                    iters=2, warmup=1)
-            with clock("K5 row-gather path"):
-                rows_ms = cuda_ms(lambda: edvr._deform_conv_rows(*args, 8),
-                                  iters=3, warmup=1)
-            x, off, mask, wgt, bias = args
-            px = n * h * w
-            nbytes = 4 * (px * (64 + off.shape[-1] + mask.shape[-1] + 64)
-                          + wgt.numel() + bias.numel())
-            flops = 2.0 * px * 9 * 64 * 64 + 8.0 * px * 9 * 64
-            b_ms, b_by = bound_ms(nbytes, flops, "tf32")
-            fma_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
-            log(f"K5 {n}x{h}x{w}x64, 8 groups: max_abs_err {err:.3e} "
-                f"(limit {limit:.3e}); kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, row-gather path {rows_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by}), f32 FMA floor {fma_ms:.4f} "
-                f"ms")
-            cases.append(dict(case=f"{n}x{h}x{w}x64 dg 8", max_abs_err=err,
-                              tolerance=limit, ms=ms, plain_ms=plain_ms,
-                              library_ms=None, rows_ms=rows_ms,
-                              bound_ms=b_ms, bound_by=b_by, fma_ms=fma_ms))
-            if n == 3:
-                for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                             ("rows_ms", rows_ms), ("nbytes", nbytes),
-                             ("flops", flops)):
-                    frame[k] += calls * v
-                frame["max_abs_err"] = max(frame["max_abs_err"], err)
-            del args
-            torch.cuda.empty_cache()
-    for n, h, w, c, dg, kind in ((2, 37, 53, 64, 8, "edges"),
-                                 (2, 68, 120, 64, 8, "integer"),
-                                 (2, 29, 31, 32, 4, "edges"),
-                                 (1, 9, 10, 32, 8, "edges")):
-        args = make_inputs(n, h, w, c, dg, kind, seed=h, device=dev)
-        got = deform_conv(*args, dg)
-        want = edvr.modulated_deform_conv_plain(*dead_for_nan(*args), dg)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        limit = 1e-5 * float(want.abs().max())
-        check(_finite(got) and err <= limit,
-              f"K5 {kind} {n}x{h}x{w}x{c}: max |kernel - plain| {err} > "
-              f"{limit}")
-        if kind == "edges":
-            check(all(torch.equal(got[0, y, x], args[4])
-                      for y, x in dead_pixels(h, w)),
-                  f"K5 {kind} {n}x{h}x{w}x{c}: a dead pixel is not the bias")
-        log(f"K5 {kind} {n}x{h}x{w}x{c}, {dg} groups: max_abs_err "
-            f"{err:.3e} (limit {limit:.3e})")
-        cases.append(dict(case=f"{kind} {n}x{h}x{w}x{c} dg {dg}",
-                          max_abs_err=err, tolerance=limit))
-    main = dict(frame, case="one 3-keyframe IR frame, 20 calls (10 at "
-                "3x272x480, 5 at 3x136x240, 5 at 3x68x120)",
-                library_ms=None, peak="tf32",
-                fma_ms=frame["flops"] / PEAK_FLOPS[torch.float32] * 1e3)
-    log(f"K5 in one 3-keyframe IR frame: kernel {main['ms']:.3f} ms, plain "
-        f"{main['plain_ms']:.3f} ms, row-gather path {main['rows_ms']:.3f} "
-        f"ms, bound {bound_ms(main['nbytes'], main['flops'], 'tf32')[0]:.3f}"
-        f" ms, f32 FMA floor {main['fma_ms']:.3f} ms")
-    return main, cases
 
 
 # ---------------------------------------------------------------- nets
@@ -1134,11 +662,10 @@ BENCH_STREAM_KEYS = ("metric", "value", "unit", "vs_baseline", "raw_fps",
                      "ms_per_window", "peak_bytes", "card")
 # the kernels of the stream and training paths; K3 runs on the bf16
 # inference paths (``blocks.takes_k3``) and its microbenchmark, K4 only on
-# its microbenchmark
+# its microbenchmark, so the f32 paths launch neither
 KERNEL_FNS = ("warp_sample", "warp_sample_backward", "argmax_matmul",
               "argmax_matmul_backward")
-BENCH_FNS = {"microbench_conv": "conv3x3_bias",
-             "microbench_gather": "gather_rows"}
+K3_K4 = ("conv3x3_bias", "gather_rows")
 
 
 def _kernel_fns():
@@ -1298,27 +825,18 @@ def checking_k3(cases, where):
     (``conv3x3_bias`` as ``models/blocks`` looks it up), in two parts:
     K3 again with a zero bias, the bias-free sum rounded to bf16, within
     ``_k3_ratio``'s envelope of the plain version's; and the call's output
-    bit for bit bf16(that sum + bias), the epilogue's rounding. Where the
-    bias cancels most of a sum, one ulp of the sum is more than the
-    envelope allows the result (the note at ``K3_RAGGED``), so the output
-    against the plain version with bias, and the library conv + bias (as
-    ``Conv2d`` made it before K3) against it too, are reported, not held.
-    Kept per (H, W, C) shape: the calls, the largest ratio of each
-    comparison and |difference|. On exit each shape is timed alone once on
-    its first call's inputs (K3, the plain version, the library conv) and
-    `cases` gets a case per shape, its times, bytes and operations summed
-    over its calls. No input is kept beyond one a shape."""
-    import torch.nn.functional as F
-
+    bit for bit bf16(that sum + bias), the epilogue's rounding. The output
+    with the bias is not held to the envelope: where the bias cancels most
+    of a sum, one ulp of the sum is more than the envelope allows the
+    result (on the H100 the 8K stream's calls read 1.153 of it at
+    1080x1920x48 and 1.041 at 2160x3840x48, max|d| 2^-8, one ulp of a
+    pre-bias sum in [0.5, 1) where max|plain| is below 1). On exit, one
+    case a (H, W, C) shape goes to `cases` (its calls, the largest ratio,
+    whether every epilogue held and every output was finite), logged and
+    checked."""
     from refvsr_tpu_torch.ops.kernels import conv3x3 as k3_mod
     fn = k3_mod.conv3x3_bias
     by_shape = {}
-
-    def library(x, wm, bias):
-        c = x.shape[2]
-        k = wm.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous()
-        return F.conv2d(x[None].permute(0, 3, 1, 2), k, bias.reshape(c),
-                        padding=1)[0].permute(1, 2, 0)
 
     class Spy:
         def __call__(self, x, wm, bias):
@@ -1328,25 +846,14 @@ def checking_k3(cases, where):
             z = fn(x, wm, zero)
             fn.launches = n
             want_z = k3_mod.conv3x3_bias_plain(x, wm, zero)
-            want = want_z + bias
-            key = tuple(x.shape)
-            s = by_shape.setdefault(key, dict(
-                calls=0, ratio=0.0, epilogue_equal=True, max_abs_err=0.0,
-                ratio_with_bias=0.0, library_ratio_with_bias=0.0,
-                finite=True, first=tuple(_clone(t) for t in (x, wm, bias))))
+            s = by_shape.setdefault(tuple(x.shape), dict(
+                calls=0, ratio=0.0, epilogue_equal=True, finite=True))
             s["calls"] += 1
             s["ratio"] = max(s["ratio"], _k3_ratio(z, want_z))
             s["epilogue_equal"] = (s["epilogue_equal"]
                                    and torch.equal(y, z + bias))
-            s["ratio_with_bias"] = max(s["ratio_with_bias"],
-                                       _k3_ratio(y, want))
-            s["library_ratio_with_bias"] = max(
-                s["library_ratio_with_bias"],
-                _k3_ratio(library(x, wm, bias), want))
-            s["max_abs_err"] = max(s["max_abs_err"], float(
-                (y.float() - want.float()).abs().max()))
             s["finite"] = s["finite"] and _finite(y)
-            del z, want_z, want
+            del z, want_z
             return y
 
         @property
@@ -1363,21 +870,15 @@ def checking_k3(cases, where):
     finally:
         k3_mod.conv3x3_bias = fn
     for (h, w, c), s in by_shape.items():
-        x, wm, bias = s.pop("first")
-        with clock("K3 alone"):
-            one = dict(
-                ms=cuda_ms(lambda: fn(x, wm, bias), 5),
-                plain_ms=cuda_ms(
-                    lambda: k3_mod.conv3x3_bias_plain(x, wm, bias), 2, 1),
-                library_ms=cuda_ms(lambda: library(x, wm, bias), 5))
-        n = s["calls"]
-        nbytes = _nbytes(x, wm, bias, x)
-        cases.append(dict(
-            label=f"{where}: {h}x{w}x{c}, {n} calls", shape=[h, w, c],
-            **s, **{key: n * v for key, v in one.items()},
-            ms_a_call=one["ms"], nbytes=n * nbytes,
-            flops=n * 2.0 * h * w * c * 9 * c, peak=torch.bfloat16))
-        del x, wm, bias
+        case = dict(label=f"{where}: {h}x{w}x{c}, {s['calls']} calls", **s)
+        cases.append(case)
+        log(f"K3 in the path, {case['label']}: bias-free sum at "
+            f"{s['ratio']:.3f} of the envelope, epilogue bit for bit "
+            f"{s['epilogue_equal']}")
+        check(s["finite"] and s["ratio"] <= 1.0 and s["epilogue_equal"],
+              f"K3 {case['label']}: the bias-free sum at {s['ratio']:.3f} "
+              f"of the envelope 2^-7 |plain| + 2^-8 max|plain|, or the "
+              f"epilogue not bf16(sum + bias): {case}")
 
 
 def to_host(*call_sets):
@@ -1398,100 +899,12 @@ def _shape_key(args):
                  for a in args)
 
 
-KERNEL_TAGS = {"conv3x3_bias": "conv3x3_bias_kernel",
-               "deform_conv": "deform_conv_kernel",
-               "warp_sample": "warp_sample_kernel",
-               "warp_sample_backward": "warp_sample_backward_kernel",
-               "argmax_matmul": "argmax_matmul_kernel",
-               "argmax_matmul_backward": "argmax_matmul_backward_kernel"}
-
-
-# the backward launchers clear their f32 output (dx, d_ref) with a memset
-# on the stream just before the kernel
-CLEARED = ("warp_sample_backward", "argmax_matmul_backward")
-
-
-def _clears(prof, tag):
-    """(ms, count) of the memsets that come just before a launch of the
-    kernel `tag` on its stream in a finished torch.profiler trace."""
-    dev = sorted((ev for ev in prof.events()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda ev: ev.time_range.start)
-    last, ms, n = {}, 0.0, 0
-    for ev in dev:
-        stream = getattr(ev, "device_resource_id", None)
-        prev = last.get(stream)
-        if tag in ev.name and prev is not None and "Memset" in prev.name:
-            ms += prev.time_range.elapsed_us() / 1e3
-            n += 1
-        last[stream] = ev
-    return ms, n
-
-
-def device_profile(prof, names, what, wall_ms, card, top=0):
-    """Device ms and launches of the kernels `names` in a finished
-    torch.profiler trace (a backward kernel's with its launcher's clears),
-    the device's busy time and idle share, and optionally the `top` kernels
-    by device time."""
-    events = [ev for ev in prof.key_averages()
-              if ev.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(ev.self_device_time_total for ev in events) / 1e3
-    out = {}
-    for name in names:
-        mine = [ev for ev in events if KERNEL_TAGS[name] in ev.key]
-        ms = sum(ev.self_device_time_total for ev in mine) / 1e3
-        n = sum(ev.count for ev in mine)
-        check(ms > 0 and n > 0, f"{what}: no device time for {name}")
-        out[name] = dict(ms=ms, launches=n, kernel_ms=ms)
-        if name in CLEARED:
-            clear_ms, cleared = _clears(prof, KERNEL_TAGS[name])
-            check(cleared == n, f"{what}: {cleared} clears found before "
-                  f"{n} launches of {name}")
-            out[name].update(ms=ms + clear_ms, clear_ms=clear_ms)
-    idle = max(0.0, 1 - busy / wall_ms)
-    log(f"profiled {what}: host {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
-        f"idle share {idle:.3f}; "
-        + "; ".join(f"{k} {v['ms']:.4f} ms in {v['launches']} launches"
-                    + (f" (kernel {v['kernel_ms']:.4f}, clears "
-                       f"{v['clear_ms']:.4f})" if "clear_ms" in v else "")
-                    for k, v in out.items()) + f"  [{card}]")
-    if top:
-        log(f"{'ms':>10} {'share':>6} {'calls':>6}  kernel ({what})")
-        for ev in sorted(events, key=lambda e: -e.self_device_time_total)[
-                :top]:
-            ms = ev.self_device_time_total / 1e3
-            log(f"{ms:10.3f} {ms / busy:6.3f} {ev.count:6d}  {ev.key[:100]}")
-    return out, dict(wall_ms=wall_ms, busy_ms=busy, idle_share=idle)
-
-
-def traced():
-    """A torch.profiler session over a window or a step that records the
-    device's activity only (kernels, memsets, the runtime's launch calls):
-    the host's operators are not read, and a training step's tens of
-    thousands of them took 16-20 s to parse."""
-    from torch.profiler import ProfilerActivity, profile
-    return profile(activities=[ProfilerActivity.CUDA])
-
-
-def profiled_window(runner, lrs, refs, card):
-    """One forward_stream window traced by torch.profiler: device ms and
-    launches of each hand-written kernel inside the main path."""
-    with traced() as prof:
-        t0 = time.perf_counter()
-        runner.process_device(lrs, refs, is_first=False)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return device_profile(prof, ("warp_sample", "argmax_matmul",
-                                 "conv3x3_bias"),
-                          "forward_stream window", wall_ms, card)[0]
-
-
 def phase_main_path(dev, card):
     """The stream through the bench's stream leg (``bench/e2e.run_stream``,
     the entry point ``python -m refvsr_tpu_torch.bench.e2e`` calls) at full
-    size, its record checked; then one more streamed window traced, and the
-    kernels' inputs captured in a further streamed window and in a new
-    first window."""
+    size, its record checked; then the kernels' inputs captured in a
+    further streamed window, K3's calls held as they run, and in a new
+    first window. Returns (the record, captured calls of each window)."""
     from refvsr_tpu_torch.bench import e2e
     from refvsr_tpu_torch.configs import get_config
     from refvsr_tpu_torch.models import matching as matching_mod
@@ -1535,36 +948,24 @@ def phase_main_path(dev, card):
         f"gate passed; peak allocated {rec['peak_bytes'] / 2**30:.2f} GiB "
         f"[{card}]")
 
-    # the kernels inside the path: device time of one more streamed window,
-    # traced; then the inputs the path hands each kernel, captured in a
-    # further streamed window and in a new first window (once for each
-    # shape the streamed window lacks: K1's low-res features onto the 2x
-    # grid, K2 at batch T), for the comparisons with the plain versions
+    # the inputs the path hands each kernel, captured in a further streamed
+    # window (K3's held as it runs) and in a new first window (once for
+    # each shape the streamed window lacks: K1's low-res features onto the
+    # 2x grid, K2 at batch T), for the comparisons with the plain versions
     runner = res.runner
     lrs, refs = (torch.as_tensor(a).to(device=dev, dtype=torch.bfloat16)
                  for a in (res.lrs, res.refs))
     del res
-    with clock("traced window"):
-        in_path = profiled_window(runner, lrs, refs, card)
     stream_calls = {"warp_sample": [], "argmax_matmul": []}
     first_calls = {"warp_sample": [], "argmax_matmul": []}
     k3_cases = []
+    k3_before = read_launches()["conv3x3_bias"]
     with capturing(warp_mod, "warp_sample", stream_calls["warp_sample"]), \
             capturing(matching_mod, "argmax_matmul",
                       stream_calls["argmax_matmul"]), \
             checking_k3(k3_cases, "forward_stream"), clock("K3 held"):
         runner.process_device(lrs, refs, is_first=False)
-    for c in k3_cases:
-        log(f"K3 in the path, {c['label']}: bias-free sum at "
-            f"{c['ratio']:.3f} of the envelope, epilogue bit for bit "
-            f"{c['epilogue_equal']}; with the bias {c['ratio_with_bias']:.3f}"
-            f" of it (library conv + bias {c['library_ratio_with_bias']:.3f}"
-            f"), max|d| {c['max_abs_err']:.4g}; alone {c['ms_a_call']:.4f} "
-            f"ms a call  [{card}]")
-        check(c["finite"] and c["ratio"] <= 1.0 and c["epilogue_equal"],
-              f"K3 {c['label']}: the bias-free sum at {c['ratio']:.3f} of "
-              f"the envelope 2^-7 |plain| + 2^-8 max|plain|, or the "
-              f"epilogue not bf16(sum + bias): {c}")
+    k3_launches = read_launches()["conv3x3_bias"] - k3_before
     seen = {k: {_shape_key(a) for a, _ in v} for k, v in stream_calls.items()}
     with capturing(warp_mod, "warp_sample", first_calls["warp_sample"],
                    seen["warp_sample"]), \
@@ -1576,12 +977,13 @@ def phase_main_path(dev, card):
     torch.cuda.empty_cache()
     check([len(v) for v in stream_calls.values()] == [10, 1],
           "captured streamed window: launches != (10, 1)")
-    check(sum(c["calls"] for c in k3_cases) == in_path["conv3x3_bias"][
-        "launches"], f"K3: {in_path['conv3x3_bias']['launches']} launches "
-        f"in the traced window, {[c['calls'] for c in k3_cases]} held")
+    check(k3_launches > 0
+          and sum(c["calls"] for c in k3_cases) == k3_launches,
+          f"K3: {k3_launches} launches in the held window, "
+          f"{[c['calls'] for c in k3_cases]} held")
     check([len(v) for v in first_calls.values()] == [1, 1],
           "captured first window: shapes new to it != (1, 1)")
-    return launches, rec, in_path, stream_calls, first_calls, k3_cases
+    return rec, stream_calls, first_calls
 
 
 def _scene(rng, h, w):
@@ -1664,7 +1066,7 @@ def phase_serving(dev, card):
     """The serving path: Predictor.predict on a seeded 1080p PNG pair, the
     launches counted over SERVE_CALLS calls, the output checked, the PNG
     work timed apart; then the K1/K2 calls of one more predict captured.
-    Returns (launches, summary, captured calls)."""
+    Returns (summary, captured calls)."""
     import tempfile
 
     from refvsr_tpu_torch.configs import get_config
@@ -1696,7 +1098,6 @@ def phase_serving(dev, card):
             ms.append((time.perf_counter() - t0) * 1e3)
             after = read_launches()
             per_call.append({k: after[k] - before[k] for k in after})
-        launches = read_launches()
         peak = torch.cuda.max_memory_allocated() - base
         # the PNG work apart: the pair's decode, the output's encode
         t0 = time.perf_counter()
@@ -1748,7 +1149,7 @@ def phase_serving(dev, card):
         f"{base / 2**30:.2f} GiB held before  [{card}]")
     del pred, out
     torch.cuda.empty_cache()
-    return launches, summary, calls
+    return summary, calls
 
 
 def _clamped_windows(lrs, refs, t):
@@ -1820,7 +1221,7 @@ def phase_pipelined(dev, card):
     next): ms, launches and emitted frames of every dispatch, peaks, and
     each pipelined frame against plain's. The pipelined run's launches are
     counted from just before it to just after; its flush dispatch's K1/K2
-    calls are captured. Returns (launches, summary, captured calls)."""
+    calls are captured. Returns (summary, captured calls)."""
     from refvsr_tpu_torch.configs import get_config
     from refvsr_tpu_torch.eval.stream import StreamRunner
     from refvsr_tpu_torch.models import matching as matching_mod
@@ -1945,7 +1346,7 @@ def phase_pipelined(dev, card):
         f"{PIPE_MEAN_LIMIT})  [{card}]")
     del lrs, refs, runs
     torch.cuda.empty_cache()
-    return piped["launches"], summary, calls
+    return summary, calls
 
 
 @contextlib.contextmanager
@@ -1959,9 +1360,8 @@ def cudnn_tf32(on):
 
 
 def phase_training(dev, card):
-    """One Trainer.iteration at full width, then one more step profiled
-    with every kernel's inputs captured. Returns (launches, summary,
-    in-step kernel times, captured calls)."""
+    """One Trainer.iteration at full width, then one more step with every
+    kernel's inputs captured. Returns (summary, captured calls)."""
     from refvsr_tpu_torch.configs import get_config
     from refvsr_tpu_torch.models import matching as matching_mod
     from refvsr_tpu_torch.ops import warp as warp_mod
@@ -2014,7 +1414,7 @@ def phase_training(dev, card):
         check(all(_finite(v) for v in errs.values()),
               f"training window {i}: non-finite loss {errs}")
     check(all(launches[k] > 0 for k in KERNEL_FNS)
-          and not any(launches[k] for k in BENCH_FNS.values()),
+          and not any(launches[k] for k in K3_K4),
           f"training: a kernel was not launched, or K3/K4 was {launches}")
     unchanged = [i for i, (p, p0) in enumerate(zip(tr.params, trained0))
                  if torch.equal(p, p0)]
@@ -2040,11 +1440,12 @@ def phase_training(dev, card):
         f"2-{len(step_ms)}); peak allocated {peak / 2**30:.2f} GiB; mean "
         f"errors {means}; launches {launches}  [{card}]")
 
-    # one more step, traced, with every kernel's inputs captured (forward
-    # kernels once per shape, backward kernels at every call)
+    # one more step with every kernel's inputs captured (forward kernels
+    # once per shape, backward kernels at every call)
     arrays = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
     calls = {name: [] for name in KERNEL_FNS}
     seen = {"warp_sample": set(), "argmax_matmul": set()}
+    before = read_launches()
     with capturing(warp_mod, "warp_sample", calls["warp_sample"],
                    seen["warp_sample"]), \
             capturing(matching_mod, "argmax_matmul", calls["argmax_matmul"],
@@ -2052,23 +1453,19 @@ def phase_training(dev, card):
             capturing(k1_mod, "warp_sample_backward",
                       calls["warp_sample_backward"]), \
             capturing(k2_mod, "argmax_matmul_backward",
-                      calls["argmax_matmul_backward"]), \
-            traced() as prof:
-        t0 = time.perf_counter()
+                      calls["argmax_matmul_backward"]):
         tr.train_step(state, *window(arrays, cfg.frame_itr_num - 1,
                                      cfg.frame_num))
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    with clock("trace read"):
-        in_step, summary["profiled_step"] = device_profile(
-            prof, KERNEL_FNS, "training step", wall_ms, card, top=20)
+    after = read_launches()
     for name in ("warp_sample_backward", "argmax_matmul_backward"):
-        check(in_step[name]["launches"] == len(calls[name]),
-              f"{name}: {in_step[name]['launches']} launches in the traced "
-              f"step, {len(calls[name])} captured")
-    del tr, arrays, state, prof
+        n = after[name] - before[name]
+        check(n == len(calls[name]),
+              f"{name}: {n} launches in the captured step, "
+              f"{len(calls[name])} captured")
+    del tr, arrays, state
     torch.cuda.empty_cache()
-    return launches, summary, in_step, calls
+    return summary, calls
 
 
 def phase_bench_train(dev, card, stream_record):
@@ -2077,7 +1474,7 @@ def phase_bench_train(dev, card, stream_record):
     window, an untimed and four timed iterations with the launches counted;
     its fields merged into the stream leg's record as the bench prints it
     last. Then one more iteration (one step) with every kernel's inputs
-    captured. Returns (launches, summary, captured calls)."""
+    captured. Returns (summary, captured calls)."""
     from refvsr_tpu_torch.bench import e2e
     from refvsr_tpu_torch.models import matching as matching_mod
     from refvsr_tpu_torch.ops import warp as warp_mod
@@ -2106,7 +1503,7 @@ def phase_bench_train(dev, card, stream_record):
     check(all(f["train_launches"][k] > 0
               and launches[k] == f["train_launches"][k] * iters
               for k in KERNEL_FNS)
-          and not any(launches[k] for k in BENCH_FNS.values()),
+          and not any(launches[k] for k in K3_K4),
           f"bench train launches {launches}, per iteration "
           f"{f['train_launches']}")
     record = {**stream_record, **f}
@@ -2134,7 +1531,7 @@ def phase_bench_train(dev, card, stream_record):
         f"captured step {({k: len(v) for k, v in calls.items()})}  [{card}]")
     del res
     torch.cuda.empty_cache()
-    return launches, dict(record=record, leg_s=leg_s), calls
+    return dict(record=record, leg_s=leg_s), calls
 
 
 # the training entry point: a seeded 1080p PNG tree laid out as
@@ -2494,9 +1891,8 @@ def phase_train_entry(dev, card):
     second epoch, then the is_amp iteration. The host pool makes
     TrainLoader's batch, the is_amp batch and the is_amp window's CPU side
     while the epochs run.
-    Returns (launches of the first epoch, summary, captured kernel calls of
-    the epoch's first step and first validation window, those of the
-    is_amp step)."""
+    Returns (summary, captured kernel calls of the epoch's first step and
+    first validation window, those of the is_amp step)."""
     from refvsr_tpu_torch import run
     from refvsr_tpu_torch.models import matching as matching_mod
     from refvsr_tpu_torch.ops import warp as warp_mod
@@ -2567,7 +1963,7 @@ def phase_train_entry(dev, card):
         check(tr.opt.step == cfg.frame_itr_num == len(rec.iters) * 9,
               f"epoch 0: {tr.opt.step} steps in {len(rec.iters)} batches")
         check(all(launches[k] > 0 for k in KERNEL_FNS)
-              and not any(launches[k] for k in BENCH_FNS.values()),
+              and not any(launches[k] for k in K3_K4),
               f"epoch 0: a kernel was not launched, or K3/K4 was {launches}")
         v = summary["epoch0"]
         check(np.isfinite(v["psnr"]) and len(v["valid_window_ms"]) == 1,
@@ -2635,7 +2031,7 @@ def phase_train_entry(dev, card):
         with clock("is_amp"):
             summary["amp"], amp_calls = phase_amp(dev, card, root,
                                                   amp_batch, amp_cpu)
-    return launches, summary, calls, amp_calls
+    return summary, calls, amp_calls
 
 
 # ------------------------------------------- RefVSR-IR and the eval CLI
@@ -2648,13 +2044,9 @@ IR_VIDEOS = (("0000", 5), ("0001", 1))
 # the eval CLI on RefVSR_MFID_8K: a 1080p HR tree, one video of a first
 # window and a streamed one
 EVAL_8K_FRAMES = 2
-# the window whose EDVR and deformable convolutions are timed apart (their
-# timers synchronise the card), the next (whose kernel calls are
-# captured) and the one traced by torch.profiler, all streamed windows of
-# the first video; the timed and the traced window are left out of the ms
-# per streamed window
-IR_TIMED_WINDOW = 1
-IR_PROFILED_WINDOW = 3
+# the window whose kernel calls are captured, a streamed window of the
+# first video
+IR_CAPTURED_WINDOW = 2
 
 
 def _ir_batch(cfg, seed):
@@ -2786,32 +2178,20 @@ def _score_lines(d, mode):
 
 
 def ir_eval_instruments(rec):
-    """Time each window (synchronised) with its K1/K2 launches; in window
-    IR_TIMED_WINDOW the EDVR refill and each deformable convolution apart,
-    by CUDA events; trace window IR_PROFILED_WINDOW; capture the kernels'
-    inputs in the window after the timed one. A window after which the
-    runner's count is 1 was a first window."""
+    """Time each window (synchronised) with its K1/K2/K5 launches; capture
+    the kernels' inputs in window IR_CAPTURED_WINDOW. A window after which
+    the runner's count is 1 was a first window."""
     from refvsr_tpu_torch.eval.stream import StreamRunner
-    from refvsr_tpu_torch.models import edvr as edvr_mod
-    from refvsr_tpu_torch.models.refvsr_ir import RefVSRIRNet
 
     def process_device(orig):
         def f(self, *a, **k):
-            wi = len(rec["windows"])
-            rec["timed"] = wi == IR_TIMED_WINDOW
-            rec["gate"] = wi == IR_TIMED_WINDOW + 1
+            rec["gate"] = len(rec["windows"]) == IR_CAPTURED_WINDOW
             before = read_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
-                if wi != IR_PROFILED_WINDOW:
-                    out = orig(self, *a, **k)
-                    torch.cuda.synchronize()
-                    return out
-                with traced() as prof:
-                    out = orig(self, *a, **k)
-                    torch.cuda.synchronize()
-                rec["prof"] = (prof, (time.perf_counter() - t0) * 1e3)
+                out = orig(self, *a, **k)
+                torch.cuda.synchronize()
                 return out
             finally:
                 after = read_launches()
@@ -2821,32 +2201,10 @@ def ir_eval_instruments(rec):
                     k2=after["argmax_matmul"] - before["argmax_matmul"],
                     k5=after["deform_conv"] - before["deform_conv"],
                     first=self.count == 1))
-                rec["timed"] = rec["gate"] = False
+                rec["gate"] = False
         return f
 
-    def timed(key):
-        def make(orig):
-            def f(*a, **k):
-                if not rec["timed"]:
-                    return orig(*a, **k)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = orig(*a, **k)
-                end.record()
-                torch.cuda.synchronize()
-                rec[key].append(start.elapsed_time(end))
-                return out
-            return f
-        return make
-
-    stack = contextlib.ExitStack()
-    for owner, name, make in (
-            (StreamRunner, "process_device", process_device),
-            (RefVSRIRNet, "compute_refill_features", timed("edvr_ms")),
-            (edvr_mod, "modulated_deform_conv", timed("dcn_ms"))):
-        stack.enter_context(patched(owner, name, make))
-    return stack
+    return patched(StreamRunner, "process_device", process_device)
 
 
 def phase_ir_eval(dev, card):
@@ -2854,16 +2212,16 @@ def phase_ir_eval(dev, card):
     RefVSR_IR_MFID (30 blocks, 36 channels, EDVR-M 64 channels, T = 9,
     f32, seeded random weights) on a seeded RealMCVSR-layout tree:
     quan_qual over both videos, then FOV and conf on the second. Returns
-    (launches of the quan_qual run, summary, captured calls of one
-    streamed window at each new shape)."""
+    (summary, captured calls of one streamed window at each new shape)."""
     from refvsr_tpu_torch import run
     from refvsr_tpu_torch.data.jpeg import jpeg_info
     from refvsr_tpu_torch.data.png import read_image
     from refvsr_tpu_torch.models import matching as matching_mod
     from refvsr_tpu_torch.ops import warp as warp_mod
+    from refvsr_tpu_torch.ops.kernels import deform_conv as k5_mod
 
     summary = dict(card=card)
-    calls = {"warp_sample": [], "argmax_matmul": []}
+    calls = {"warp_sample": [], "argmax_matmul": [], "deform_conv": []}
     seen = {k: set() for k in calls}
     with tree("ir") as (root, summary["tree_wait_s"]):
         n_frames = sum(n for _, n in IR_VIDEOS)
@@ -2879,8 +2237,7 @@ def phase_ir_eval(dev, card):
               == ("RefVSR_IR", 30, 36, 2, 5, 9, False, False, 5),
               f"IR eval config {cfg}")
 
-        rec = dict(windows=[], edvr_ms=[], dcn_ms=[], timed=False,
-                   gate=False)
+        rec = dict(windows=[], gate=False)
         gate = lambda: rec["gate"]  # noqa: E731
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2890,7 +2247,9 @@ def phase_ir_eval(dev, card):
                           seen["warp_sample"], when=gate), \
                 capturing(matching_mod, "argmax_matmul",
                           calls["argmax_matmul"], seen["argmax_matmul"],
-                          when=gate):
+                          when=gate), \
+                capturing(k5_mod, "deform_conv", calls["deform_conv"],
+                          seen["deform_conv"], when=gate):
             t0 = time.perf_counter()
             with clock("quan_qual"):
                 res = run.main(argv + ["--eval_mode", "quan_qual",
@@ -2906,7 +2265,7 @@ def phase_ir_eval(dev, card):
               f"{[(w['k1'], w['k2'], w['k5']) for w in rec['windows']]}")
         check(not launches["warp_sample_backward"]
               and not launches["argmax_matmul_backward"]
-              and not any(launches[k] for k in BENCH_FNS.values()),
+              and not any(launches[k] for k in K3_K4),
               f"IR eval launched a backward kernel or K3/K4 {launches}")
         check(res["frames"] == n_frames and np.isfinite(res["PSNR"])
               and 0 < res["SSIM"] <= 1, f"IR eval summary {res}")
@@ -2934,42 +2293,25 @@ def phase_ir_eval(dev, card):
                             check(jpeg_info(f.read()) == shape,
                                   f"JPEG dump {kind}/{video}/{i}")
                         dumps += 2
-        ms = [w["ms"] for i, w in enumerate(rec["windows"])
-              if not w["first"]
-              and i not in (IR_TIMED_WINDOW, IR_PROFILED_WINDOW)]
+        ms = [w["ms"] for w in rec["windows"] if not w["first"]]
         first_ms = rec["windows"][0]["ms"]
         check([i for i, w in enumerate(rec["windows"]) if w["first"]]
               == [0, IR_VIDEOS[0][1]] and ms,
               f"IR eval: first windows "
               f"{[w['first'] for w in rec['windows']]}")
-        timed_ms = rec["windows"][IR_TIMED_WINDOW]["ms"]
         summary.update(
             run_main_s=main_s, window_ms=[w["ms"] for w in rec["windows"]],
             ms_per_window=sum(ms) / len(ms), first_window_ms=first_ms,
-            timed_window_ms=timed_ms, edvr_ms=rec["edvr_ms"],
-            edvr_share=sum(rec["edvr_ms"]) / timed_ms,
-            dcn_calls=len(rec["dcn_ms"]), dcn_ms=sum(rec["dcn_ms"]),
             peak_bytes=peak, psnr=res["PSNR"], ssim=res["SSIM"],
             score_lines=len(lines), dumps=dumps, launches=launches)
         log(f"IR eval via run.main (RefVSR_IR_MFID f32, {IR_HW} -> "
             f"{(4 * h, 4 * w)}, {n_frames} windows): {main_s:.1f} s; "
             f"{summary['ms_per_window']:.1f} ms per streamed window on the "
-            f"host (synchronised; first window {first_ms:.1f} ms); window "
-            f"{IR_TIMED_WINDOW}: EDVR refill "
-            + ", ".join(f"{v:.1f}" for v in rec["edvr_ms"])
-            + f" ms ({summary['edvr_share']:.3f} of its {timed_ms:.1f} ms), "
-            f"{len(rec['dcn_ms'])} deformable convolutions "
-            f"{summary['dcn_ms']:.1f} ms; K1/K2/K5 launches per window "
-            f"({want_k1}, 1, 20); peak allocated {peak / 2**30:.2f} GiB; PSNR "
-            f"{res['PSNR']:.4f} SSIM {res['SSIM']:.4f}; {len(lines)} score "
-            f"lines, {dumps} PNG/JPEG dumps decoded  [{card}]")
-
-        prof, wall_ms = rec.pop("prof")
-        in_window, summary["profiled_window"] = device_profile(
-            prof, ("warp_sample", "argmax_matmul", "deform_conv"),
-            "IR forward_stream window", wall_ms, card, top=15)
-        summary["kernels_in_window"] = in_window
-        del prof
+            f"host (synchronised; first window {first_ms:.1f} ms); "
+            f"K1/K2/K5 launches per window ({want_k1}, 1, 20); peak "
+            f"allocated {peak / 2**30:.2f} GiB; PSNR {res['PSNR']:.4f} SSIM "
+            f"{res['SSIM']:.4f}; {len(lines)} score lines, {dumps} PNG/JPEG "
+            f"dumps decoded  [{card}]")
 
         for mode, extra in (("FOV", []), ("conf", [])):
             out = f"{root}/{mode}"
@@ -3000,7 +2342,7 @@ def phase_ir_eval(dev, card):
             log(f"IR eval --eval_mode {mode} on video {IR_VIDEOS[1][0]} "
                 f"({n} frames): {secs:.1f} s, files checked  [{card}]")
     torch.cuda.empty_cache()
-    return launches, summary, calls
+    return summary, calls
 
 
 # the spatial eval CLI's score lines against the one-rank CLI's (f32,
@@ -3036,8 +2378,8 @@ def phase_eval_cli_8k(dev, card):
     """The eval CLI on RefVSR_MFID_8K (30 blocks, 48 channels, f32, HD
     input, seeded random weights): quan_qual with --quantitative_only on a
     1080p tree of EVAL_8K_FRAMES frames, the metrics on the SR frame
-    downscaled by 1/4 on the card. Returns (launches, summary, captured
-    calls of its first window at each shape)."""
+    downscaled by 1/4 on the card. Returns (summary, captured calls of its
+    first window at each shape)."""
     from refvsr_tpu_torch import run
     from refvsr_tpu_torch.models import matching as matching_mod
     from refvsr_tpu_torch.ops import warp as warp_mod
@@ -3134,15 +2476,15 @@ def phase_eval_cli_8k(dev, card):
         f"{got}; "
         f"peak allocated {peak / 2**30:.2f} GiB  [{card}]")
     torch.cuda.empty_cache()
-    return launches, summary, calls
+    return summary, calls
 
 
 def phase_ir_train(dev, card):
     """One RefVSR_IR_MFID Trainer.iteration at full width and the config's
     batch of 8 (patch 64, T = 9, 5 steps, its loss, f32), then one more
     step with every kernel's inputs captured (forward kernels once per
-    shape, backward kernels at every call). Returns (launches, summary,
-    captured calls)."""
+    shape, backward kernels at every call). Returns (summary, captured
+    calls)."""
     from refvsr_tpu_torch.configs import get_config
     from refvsr_tpu_torch.models import matching as matching_mod
     from refvsr_tpu_torch.models.refvsr_ir import sliding_keyframe_mask
@@ -3181,7 +2523,7 @@ def phase_ir_train(dev, card):
           and all(np.isfinite(v) for v in means.values()),
           f"IR iteration: {len(step_ms)} steps, means {means}")
     check(all(launches[k] > 0 for k in KERNEL_FNS)
-          and not any(launches[k] for k in BENCH_FNS.values()),
+          and not any(launches[k] for k in K3_K4),
           f"IR training: a kernel was not launched, or K3/K4 was "
           f"{launches}")
     steady = step_ms[1:]
@@ -3218,7 +2560,7 @@ def phase_ir_train(dev, card):
     log(f"IR training step captured: {summary['step_calls']}")
     del tr, arrays, state
     torch.cuda.empty_cache()
-    return launches, summary, calls
+    return summary, calls
 
 
 # ------------------------------------------------ multi-rank paths (gloo)
@@ -3289,25 +2631,20 @@ RANK_TIMEOUT_S = 600
 
 
 def _in_turns(fn, dev):
-    """fn() on each rank in turn (the others wait at a barrier), so that a
-    kernel timed on one rank does not share the card with the other's
-    work. Returns fn()'s value on this rank."""
+    """fn() on each rank in turn (the others wait at a barrier), so that
+    one rank's comparisons do not share the card with the other's."""
     from refvsr_tpu_torch.parallel import mesh
-    out = None
     for r in range(mesh.world_size()):
         if mesh.rank() == r:
-            out = fn()
+            fn()
             torch.cuda.synchronize()
         mesh.barrier(dev)
-    return out
 
 
 def k1_banded_case(name, x, flow, h, out_h, out_row0, in_row0, lo, hi):
     """The banded K1 kernel vs its plain version on one captured call."""
-    import torch.nn.functional as F
-
     from refvsr_tpu_torch.ops.kernels.warp_sample import (
-        warp_coords, warp_sample_banded, warp_sample_banded_plain)
+        warp_sample_banded, warp_sample_banded_plain)
     args = (x, flow, h, out_h, out_row0, in_row0, lo, hi)
     got = warp_sample_banded(*args)
     want = warp_sample_banded_plain(*args)
@@ -3319,30 +2656,9 @@ def k1_banded_case(name, x, flow, h, out_h, out_row0, in_row0, lo, hi):
     limit = tol * float(x.float().abs().max())
     check(err <= limit,
           f"K1 banded {name}: max |kernel - plain| {err} > {limit}")
-    # the library yardstick: grid_sample over the band on the same
-    # coordinates (it has no border-extension past the band)
-    hb, w = x.shape[1], x.shape[2]
-    sx, sy = warp_coords((h, w), flow, out_h, out_row0)
-    grid = torch.stack([(2 * sx + 1) / w - 1,
-                        (2 * (sy - in_row0) + 1) / hb - 1],
-                       -1).nan_to_num(nan=-4.0).to(x.dtype)
-    nchw = x.permute(0, 3, 1, 2)
-    ms = cuda_ms(lambda: warp_sample_banded(*args))
-    plain_ms = cuda_ms(lambda: warp_sample_banded_plain(*args), iters=3)
-    library_ms = cuda_ms(lambda: F.grid_sample(
-        nchw, grid, mode="bilinear", padding_mode="zeros",
-        align_corners=False))
-    nbytes = _nbytes(x, flow, got)
-    flops = 8 * got.numel()
-    b_ms, b_by = bound_ms(nbytes, flops, x.dtype)
     log(f"K1 banded {name}: x {tuple(x.shape)} {x.dtype} rows from "
         f"{in_row0} -> {tuple(got.shape)} rows from {out_row0} of "
-        f"{out_h}; max_abs_err {err:.3e} (limit {limit:.3e}); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
-        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(case=name, max_abs_err=err, tolerance=limit, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                bound_by=b_by, nbytes=nbytes, flops=flops, peak=x.dtype)
+        f"{out_h}; max_abs_err {err:.3e} (limit {limit:.3e})")
 
 
 def bf16_ulp(v):
@@ -3469,22 +2785,15 @@ def _spatial_rank(frames_path, ref_path, windows, kind="cuda"):
         torch.cuda.empty_cache()
 
         def held():
-            cases = {"warp_sample_banded": [], "argmax_matmul": []}
             for i, (a, _) in enumerate(calls["warp_sample_banded"]):
-                cases["warp_sample_banded"].append(k1_banded_case(
-                    f"rank {rank} call {i}", *a))
+                k1_banded_case(f"rank {rank} call {i}", *a)
             for i, (a, _) in enumerate(calls["argmax_matmul"]):
-                # no split here: a rank's first profiler pass would start
-                # CUPTI in it, 6-7 s a rank
-                cases["argmax_matmul"].append(k2_case(
-                    f"spatial rank {rank} call {i}: {_shape(a[0])}, "
-                    f"{_shape(a[1])}", *a, iters=2, plain_iters=1,
-                    split=False))
-            return cases
+                k2_case(f"spatial rank {rank} call {i}: {_shape(a[0])}, "
+                        f"{_shape(a[1])}", *a)
         with clock(f"rank {rank}: kernels against their plain versions"):
-            cases = _in_turns(held, dev)
+            _in_turns(held, dev)
         res = dict(rank=rank, backend=backend, windows=ms, peak_bytes=peak,
-                   launches=launches, cases=cases,
+                   launches=launches,
                    n_calls={k: len(v) for k, v in calls.items()})
         gathered = [None] * mesh.world_size()
         import torch.distributed as dist
@@ -3603,10 +2912,7 @@ def phase_spatial(dev, card):
         f"{SPATIAL_MEAN_LIMIT}, seam mean {SPATIAL_SEAM_MEAN_LIMIT}, seam "
         f"share {SPATIAL_SEAM_OVER_ULP_LIMIT}); launches {launches}; "
         f"{wall:.1f} s with the spawn  [{card}]")
-    cases = {k: [c for r in ranks for c in r["cases"][k]]
-             for k in ("warp_sample_banded", "argmax_matmul")}
-    rank0 = ranks[0]["cases"]["warp_sample_banded"]
-    return launches, summary, cases, rank0
+    return summary
 
 
 @contextlib.contextmanager
@@ -3925,7 +3231,7 @@ def phase_ddp(dev, card, loss=None):
         f"mean of the ranks' own; errors "
         f"{r0['errs']} vs {r0['errs_one_rank']}; launches {launches}; "
         f"{wall:.1f} s with the spawn  [{card}]")
-    return launches, summary
+    return summary
 
 
 def _train_cli_rank(argv, writes_file):
@@ -4025,206 +3331,58 @@ def _shape(t):
     return "x".join(str(v) for v in t.shape)
 
 
-def path_cases(stream_calls, first_calls, train_calls, more_calls):
-    """Each kernel against its plain version on the inputs the main paths
-    gave it: every call of a streamed window, the first window's calls at
-    shapes the streamed window lacks, the training step's calls (the
-    forward kernels once per shape, the backward kernels at every call),
-    and the calls in `more_calls` ({path label: calls by kernel}: one
-    predict, one pipelined dispatch, the first step and validation window
-    of the training entry point's epoch, one is_amp step). Returns
-    {kernel: (the calls its in-path numbers sum over, the rest)}."""
+def k5_case(name, x, offset, mask, weight, bias, deform_groups):
+    """K5 kernel vs plain on one input: finite, and within 1e-5 of the
+    largest plain output."""
+    from refvsr_tpu_torch.models import edvr
+    from refvsr_tpu_torch.ops.kernels.deform_conv import deform_conv
+    args = (x, offset, mask, weight, bias, deform_groups)
+    got = deform_conv(*args)
+    want = edvr.modulated_deform_conv_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    limit = 1e-5 * float(want.abs().max())
+    check(_finite(got) and err <= limit,
+          f"K5 {name}: max |kernel - plain| {err} > {limit}, or not finite")
+    log(f"K5 {name}, {deform_groups} groups: max_abs_err {err:.3e} (limit "
+        f"{limit:.3e})")
+
+
+def path_cases(calls_by_path):
+    """Each kernel against its plain version on the inputs the paths gave
+    it: {path label: {kernel: captured calls}} (a streamed window's every
+    call, the first window's at shapes the streamed window lacks, a
+    training step's forward calls once per shape and backward calls at
+    every call, one predict, one pipelined dispatch, ...)."""
     def k1(label, args, kw):
-        return k1_case(label, *args, 2.0 ** -6 if args[0].dtype ==
-                       torch.bfloat16 else 1e-5)
+        k1_case(label, *args, 2.0 ** -6 if args[0].dtype == torch.bfloat16
+                else 1e-5)
 
     def k2(label, args, kw):
-        return k2_case(label, *args, iters=2, plain_iters=1)
+        k2_case(label, *args)
 
     def k1_bwd(label, args, kw):
-        return k1_bwd_case(label, *args, **kw)
+        k1_bwd_case(label, *args, **kw)
 
     def k2_bwd(label, args, kw):
-        return k2_bwd_case(label, *args, **kw)
+        k2_bwd_case(label, *args, **kw)
+
+    def k5(label, args, kw):
+        k5_case(label, *args, **kw)
 
     def card(v):
         return v.cuda() if torch.is_tensor(v) else v
 
-    def run(fn, where, calls):
-        out = []
-        for i, (a, kw) in enumerate(calls):
-            with clock("to the card"):
-                a = tuple(card(x) for x in a)
-                kw = {k: card(v) for k, v in kw.items()}
-            out.append(fn(f"{where} call {i}: {_shape(a[0])}, "
-                          f"{_shape(a[1])}", a, kw))
-        return out
-
-    def more(fn, name):
-        return [c for label, calls in more_calls.items()
-                for c in run(fn, label, calls.get(name, []))]
-
-    return {
-        "warp_sample": (run(k1, "forward_stream", stream_calls["warp_sample"]),
-                        run(k1, "forward_first", first_calls["warp_sample"])
-                        + run(k1, "train step", train_calls["warp_sample"])
-                        + more(k1, "warp_sample")),
-        "argmax_matmul": (
-            run(k2, "forward_stream", stream_calls["argmax_matmul"]),
-            run(k2, "forward_first", first_calls["argmax_matmul"])
-            + run(k2, "train step", train_calls["argmax_matmul"])
-            + more(k2, "argmax_matmul")),
-        "warp_sample_backward": (
-            run(k1_bwd, "train step", train_calls["warp_sample_backward"]),
-            more(k1_bwd, "warp_sample_backward")),
-        "argmax_matmul_backward": (
-            run(k2_bwd, "train step", train_calls["argmax_matmul_backward"]),
-            more(k2_bwd, "argmax_matmul_backward")),
-    }
-
-
-KERNEL_META = {
-    "warp_sample": dict(
-        id="K1", source="refvsr_tpu_torch/csrc/warp_sample.cu",
-        replaces="refvsr_tpu/ops/pallas/warp_select.py:293",
-        tolerance="2**-6 * max|x| (bf16), 1e-5 * max|x| (f32)",
-        ms_is="device time of its launches in one forward_stream window "
-              "(torch.profiler); plain_ms, library_ms (F.grid_sample) and "
-              "bound_ms are for the inputs the path gave it in the next "
-              "forward_stream window, summed over its launches"),
-    "warp_sample_banded": dict(
-        id="K1-banded", source="refvsr_tpu_torch/csrc/warp_sample.cu",
-        replaces="refvsr_tpu/ops/pallas/warp_select.py:293",
-        tolerance="2**-6 * max|x| (bf16), 1e-5 * max|x| (f32)",
-        ms_is="CUDA-event time of each of rank 0's launches in one "
-              "forward_stream window of the spatial stream (two gloo ranks "
-              "on one card), each timed alone while the other rank waits, "
-              "summed; plain_ms, library_ms (F.grid_sample over the band) "
-              "and bound_ms for the same calls"),
-    "warp_sample_backward": dict(
-        id="K1-bwd", source="refvsr_tpu_torch/csrc/warp_sample.cu",
-        replaces="refvsr_tpu/ops/pallas/warp_select.py:363",
-        tolerance="1e-5 (f32), 2**-7 (bf16) of the f32 plain backward's "
-                  "max |dx|, |dflow|",
-        ms_is="device time of its launches and of its launcher's clears "
-              "of dx in one full-width training step (torch.profiler); "
-              "plain_ms, library_ms (aten.grid_sampler_2d_backward) and bound_ms are for the "
-              "inputs that step gave it, summed over its launches"),
-    "argmax_matmul": dict(
-        id="K2", source="refvsr_tpu_torch/csrc/argmax_matmul.cu",
-        replaces="refvsr_tpu/ops/pallas/matching_kernel.py:67",
-        tolerance="conf 1e-4; picks within 1e-4 of the max",
-        ms_is="device time of its launch in one forward_stream window "
-              "(torch.profiler); plain_ms, library_ms (matmul + max, two "
-              "calls) and bound_ms are for the inputs the path gave it in "
-              "the next forward_stream window"),
-    "argmax_matmul_backward": dict(
-        id="K2-bwd", source="refvsr_tpu_torch/csrc/argmax_matmul.cu",
-        replaces="refvsr_tpu/ops/pallas/matching_kernel.py:118",
-        tolerance="d_lr 1e-6, d_ref 1e-5 (f32) or 2**-7 (bf16) of the plain "
-                  "backward's max",
-        ms_is="device time of its launch and of its launcher's clear of "
-              "d_ref in one full-width training step (torch.profiler); "
-              "plain_ms, library_ms (index_select + "
-              "index_add_, two calls) and bound_ms are for the inputs that "
-              "step gave it"),
-    "conv3x3_bias": dict(
-        id="K3", source="refvsr_tpu_torch/csrc/conv3x3.cu",
-        replaces="scripts/microbench_pallas_conv.py:80",
-        tolerance="2**-7 * |plain| + 2**-8 * max|plain| elementwise (bf16);"
-                  " on the path's calls the bias-free sum so, and the "
-                  "output bit for bit bf16(that sum + bias)",
-        ms_is="device time of its launches in one forward_stream window "
-              "(torch.profiler); isolated_ms, plain_ms, library_ms "
-              "(F.conv2d with bias, channels-last bf16, one call, as the "
-              "net's Conv2d made it before K3) and bound_ms are for the "
-              "inputs the path gave it in the next forward_stream window, "
-              "each shape timed alone once by CUDA events and counted for "
-              "each of its launches; the cases add the microbenchmark's "
-              "1080x1920x48 call and its ragged shapes"),
-    "deform_conv": dict(
-        id="K5", source="refvsr_tpu_torch/csrc/deform_conv.cu",
-        replaces="none: the JAX package computes the DCN plainly "
-                 "(refvsr_tpu/models/edvr.py); mmcv's op was the "
-                 "reference's one native CUDA op",
-        tolerance="1e-5 * max|plain| (f32); dead pixels exactly the bias",
-        ms_is="CUDA-event time of one 3-keyframe IR frame's 20 calls (10 "
-              "at 3x272x480x64, 5 at 3x136x240x64, 5 at 3x68x120x64, each "
-              "shape timed alone); plain_ms the plain version's, rows_ms "
-              "the row-gather path's (the route before K5), bound_ms bytes "
-              "against the TF32 rate (the benchmark's yardstick), fma_ms "
-              "the operations at 67 TFLOP/s f32"),
-    "gather_rows": dict(
-        id="K4", source="refvsr_tpu_torch/csrc/gather_rows.cu",
-        replaces="scripts/microbench_pallas_gather.py:93",
-        tolerance="bitwise",
-        ms_is="CUDA-event time of one call at R 2048, L 128 bf16, P 2^20 in "
-              "the microbenchmark, isolated; library_ms is index_select, "
-              "plain_ms the plain version, bound_ms for the same inputs"),
-}
-
-
-def _case(c):
-    return {k: v for k, v in c.items() if k not in (
-        "nbytes", "flops", "peak", "kernels_bias", "kernels_nobias")}
-
-
-def kernels_line(synthetic, on_path, in_path, in_step, launches, bench,
-                 banded):
-    kernels = []
-    for name, m in KERNEL_META.items():
-        by_path = {p: launches[p].get(name, 0) for p in launches}
-        entry = dict(name=name, id=m["id"], route="cuda", source=m["source"],
-                     replaces=m["replaces"], launches=sum(by_path.values()),
-                     launches_by_path=by_path, tolerance=m["tolerance"],
-                     ms_is=m["ms_is"])
-        if name == "warp_sample_banded":
-            counted, cases = banded
-            b_ms, b_by = bound_ms(sum(c["nbytes"] for c in counted),
-                                  sum(c["flops"] for c in counted),
-                                  counted[0]["peak"])
-            kernels.append(dict(
-                entry, max_abs_err=max(c["max_abs_err"] for c in cases),
-                ms=sum(c["ms"] for c in counted),
-                plain_ms=sum(c["plain_ms"] for c in counted),
-                library_ms=sum(c["library_ms"] for c in counted),
-                bound_ms=b_ms, bound_by=b_by,
-                cases=[_case(c) for c in cases]))
-            continue
-        if name in bench:
-            main, cases = bench[name]
-            b_ms, b_by = bound_ms(main["nbytes"], main["flops"],
-                                  main.get("peak", torch.bfloat16))
-            kernels.append(dict(
-                entry, max_abs_err=max(c["max_abs_err"] for c in cases),
-                ms=main["ms"], plain_ms=main["plain_ms"],
-                library_ms=main["library_ms"], bound_ms=b_ms, bound_by=b_by,
-                **{k: main[k] for k in ("rows_ms", "fma_ms") if k in main},
-                cases=[_case(c) for c in cases]))
-            continue
-        counted, rest = on_path[name]
-        forward = name in ("warp_sample", "argmax_matmul", "conv3x3_bias")
-        ms = (in_path if forward else in_step)[name]
-        # a K3 case holds every call of one shape
-        n = sum(c.get("calls", 1) for c in counted)
-        check(ms["launches"] == n or not forward,
-              f"{name}: {ms['launches']} launches in the profiled window, "
-              f"{n} in the captured one")
-        peaks = {c["peak"] for c in counted}
-        check(len(peaks) == 1, f"{name}: in-path calls of mixed peaks")
-        b_ms, b_by = bound_ms(sum(c["nbytes"] for c in counted),
-                              sum(c["flops"] for c in counted), peaks.pop())
-        lib = [c["library_ms"] for c in counted]
-        cases = synthetic[name] + counted + rest
-        kernels.append(dict(
-            entry, max_abs_err=max(c["max_abs_err"] for c in cases),
-            ms=ms["ms"], kernel_ms=ms["kernel_ms"],
-            ms_train_step=in_step[name]["ms"] if name in in_step else None,
-            isolated_ms=sum(c["ms"] for c in counted),
-            plain_ms=sum(c["plain_ms"] for c in counted),
-            library_ms=None if None in lib else sum(lib),
-            bound_ms=b_ms, bound_by=b_by, cases=[_case(c) for c in cases]))
-    return kernels
+    for name, fn in (("warp_sample", k1), ("argmax_matmul", k2),
+                     ("warp_sample_backward", k1_bwd),
+                     ("argmax_matmul_backward", k2_bwd),
+                     ("deform_conv", k5)):
+        for where, calls in calls_by_path.items():
+            for i, (a, kw) in enumerate(calls.get(name, [])):
+                with clock("to the card"):
+                    a = tuple(card(x) for x in a)
+                    kw = {k: card(v) for k, v in kw.items()}
+                fn(f"{where} call {i}: {_shape(a[0])}, {_shape(a[1])}", a, kw)
 
 
 def main():
@@ -4252,21 +3410,7 @@ def smoke():
 
     from refvsr_tpu_torch.ops.kernels import build
     with clock("build"):
-        # nvcc runs in its own processes; meanwhile the first torch.profiler
-        # session starts CUPTI (7-9 s on the card's machine), once a process
-        failed = []
-
-        def build_all():
-            try:
-                build.LIBS.build_all()
-            except BaseException as e:
-                failed.append(e)
-        builder = threading.Thread(target=build_all)
-        builder.start()
-        device_kernels(lambda: torch.ones(1, device="cuda").add_(1))
-        builder.join()
-        if failed:
-            raise failed[0]
+        build.LIBS.build_all()
     log(f"kernels built in {build.LIBS.seconds:.1f} s")
     for name, text in sorted(build.LIBS.log.items()):
         for line in text.splitlines():
@@ -4275,21 +3419,17 @@ def smoke():
 
     dev = "cuda"
     with clock("k1"):
-        synthetic = {"warp_sample": phase_k1(dev)}
-        k1_host = k1_host_pieces(dev, card)
+        phase_k1(dev)
     with clock("k2"):
-        synthetic["argmax_matmul"] = phase_k2(dev)
+        phase_k2(dev)
     torch.cuda.empty_cache()
     with clock("k1_backward"):
-        synthetic["warp_sample_backward"] = phase_k1_backward(dev)
+        phase_k1_backward(dev)
     with clock("k2_backward"):
-        synthetic["argmax_matmul_backward"] = phase_k2_backward(dev)
+        phase_k2_backward(dev)
     torch.cuda.empty_cache()
-    with clock("microbench"):
-        launches, bench = phase_microbench(card)
-    with clock("k5"):
-        bench["deform_conv"] = phase_k5(dev)
-    torch.cuda.empty_cache()
+    with clock("bench_entries"):
+        phase_bench_entries()
     with clock("small_agreement"):
         phase_small_agreement(dev)
     with clock("small_training"):
@@ -4298,92 +3438,72 @@ def smoke():
         phase_ir_small(dev)
     torch.cuda.empty_cache()
     with clock("main_path"):
-        (launches["stream"], stream_record, in_path, stream_calls,
-         first_calls, k3_cases) = phase_main_path(dev, card)
+        stream_record, stream_calls, first_calls = phase_main_path(dev, card)
     with clock("serving"):
-        launches["serving"], serving, serve_calls = phase_serving(dev, card)
+        serving, serve_calls = phase_serving(dev, card)
     with clock("pipelined"):
-        launches["pipelined"], pipelined, pipe_calls = phase_pipelined(
-            dev, card)
+        pipelined, pipe_calls = phase_pipelined(dev, card)
     torch.cuda.empty_cache()
     with clock("spatial"):
-        launches["spatial"], spatial, spatial_cases, banded_counted = \
-            phase_spatial(dev, card)
+        spatial = phase_spatial(dev, card)
     torch.cuda.empty_cache()
     with clock("ddp"):
         # the later phases' PNG trees, on the host pool beside the ranks
         start_trees()
-        launches["ddp"], ddp = phase_ddp(dev, card)
+        ddp = phase_ddp(dev, card)
     torch.cuda.empty_cache()
     with cudnn_tf32(True):
         with clock("training"):
-            launches["train"], train, in_step, train_calls = phase_training(
-                dev, card)
+            train, train_calls = phase_training(dev, card)
         with clock("to_host"):
             to_host(stream_calls, first_calls, serve_calls, pipe_calls,
                     train_calls)
         torch.cuda.empty_cache()
         with clock("bench_train"):
-            launches["bench"], bench_train, bench_calls = phase_bench_train(
-                dev, card, stream_record)
+            bench_train, bench_calls = phase_bench_train(dev, card,
+                                                         stream_record)
         with clock("to_host"):
             to_host(bench_calls)
         with clock("train_entry"):
-            launches["train_entry"], entry, entry_calls, amp_calls = \
-                phase_train_entry(dev, card)
+            entry, entry_calls, amp_calls = phase_train_entry(dev, card)
         with clock("to_host"):
             to_host(entry_calls, amp_calls)
         torch.cuda.empty_cache()
         with clock("ir_eval"):
-            launches["ir_eval"], ir_eval, ir_calls = phase_ir_eval(dev, card)
+            ir_eval, ir_calls = phase_ir_eval(dev, card)
         with clock("to_host"):
             to_host(ir_calls)
         with clock("eval_cli_8k"):
-            launches["eval_cli"], eval_cli, cli_calls = phase_eval_cli_8k(
-                dev, card)
+            eval_cli, cli_calls = phase_eval_cli_8k(dev, card)
         with clock("to_host"):
             to_host(cli_calls)
         with clock("ir_train"):
-            launches["ir_train"], ir_train, ir_train_calls = phase_ir_train(
-                dev, card)
+            ir_train, ir_train_calls = phase_ir_train(dev, card)
         with clock("to_host"):
             to_host(ir_train_calls)
         torch.cuda.empty_cache()
         with clock("train_cli_ddp"):
             train_cli = phase_train_cli_ddp(card)
-    launches["train_amp"] = entry["amp"]["launches"]
     with clock("path_cases"):
-        on_path = path_cases(stream_calls, first_calls, train_calls,
-                             {"predict": serve_calls,
-                              "pipelined dispatch": pipe_calls,
-                              "train entry (step 1, validation window 0)":
-                              entry_calls,
-                              "is_amp step": amp_calls,
-                              "IR eval window (forward_stream)": ir_calls,
-                              "8K eval CLI (forward_first)": cli_calls,
-                              "IR train step": ir_train_calls,
-                              "bench train step": bench_calls})
-        on_path["argmax_matmul"][1].extend(spatial_cases["argmax_matmul"])
-        # K3: the streamed window's calls; its microbenchmark's cases (the
-        # default size and the ragged shapes) beside them
-        on_path["conv3x3_bias"] = (k3_cases, [])
-        synthetic["conv3x3_bias"] = bench["conv3x3_bias"][1]
-        kernels = kernels_line(synthetic, on_path, in_path, in_step,
-                               launches, {k: v for k, v in bench.items()
-                                          if k not in on_path},
-                               (banded_counted,
-                                spatial_cases["warp_sample_banded"]))
+        path_cases({"forward_stream": stream_calls,
+                    "forward_first": first_calls,
+                    "train step": train_calls,
+                    "predict": serve_calls,
+                    "pipelined dispatch": pipe_calls,
+                    "train entry (step 1, validation window 0)": entry_calls,
+                    "is_amp step": amp_calls,
+                    "IR eval window (forward_stream)": ir_calls,
+                    "8K eval CLI (forward_first)": cli_calls,
+                    "IR train step": ir_train_calls,
+                    "bench train step": bench_calls})
     total_s = time.perf_counter() - t_start
     log(json.dumps(dict(main_path=dict(card=card, bench=stream_record),
                         bench=bench_train, serving=serving,
                         pipelined=pipelined, spatial=spatial, ddp=ddp,
                         training=train, train_entry=entry, ir_eval=ir_eval,
                         eval_cli=eval_cli, ir_train=ir_train,
-                        train_cli=train_cli, k1_host_us=k1_host,
-                        phase_s=seconds_by_phase(), spans_s=SPANS,
-                        profiler_passes=PASSES, total_s=total_s),
-                   default=str))
-    log(json.dumps(dict(kernels=kernels)))
+                        train_cli=train_cli, phase_s=seconds_by_phase(),
+                        spans_s=SPANS, total_s=total_s), default=str))
     log(f"where the smoke's time goes [{card}]:")
     for line in time_table(total_s):
         log(line)

@@ -6,19 +6,12 @@
 - ``python -m refvsr_tpu_torch.bench.microbench_gather``: K4, the row
   gather, against ``torch.index_select``.
 
-and, on the card only, ``python -m refvsr_tpu_torch.bench.probe_backward``:
-variants of K1's backward kernel, the L2's reduction rates and the backward
-wrappers' host work, the measurements behind the backward kernels' design.
-
-Each microbenchmark module's ``run(...)`` returns its numbers as a dict. Times are taken
-on the card only, by CUDA events; with ``--device cpu`` an entry point runs
-the plain versions and measures nothing.
+Each microbenchmark module's ``run(...)`` returns its numbers as a dict.
+Times are taken on the card only, by CUDA events; with ``--device cpu`` an
+entry point runs the plain versions and measures nothing.
 """
 
 from __future__ import annotations
-
-import statistics
-import time
 
 import torch
 
@@ -41,26 +34,6 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def host_us(fn, reps=200, rounds=5, warmup=20):
-    """Host microseconds a call of fn() takes: the median over `rounds` of
-    the host clock over `reps` calls with no synchronisation inside (the
-    card is synchronised before each round and after it, outside the
-    clock). Keep reps below the launch queue's depth (about a thousand
-    kernels) where fn() launches work, so that the host never waits for
-    the device."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(rounds):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        times.append((time.perf_counter() - t0) / reps * 1e6)
-        torch.cuda.synchronize()
-    return statistics.median(times)
 
 
 def bound_ms(nbytes, flops, peak):

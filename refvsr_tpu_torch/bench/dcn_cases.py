@@ -1,6 +1,6 @@
 """Seeded operands of the modulated deformable convolution (K5,
-``ops/kernels/deform_conv.py``), shared by the CPU tests, the card tests
-and ``chip_smoke.py``.
+``ops/kernels/deform_conv.py``), shared by the CPU tests and the card
+tests.
 
 Shapes of RefVSR-IR's calls (``benchmark/configs/RefVSR_IR_MFID.json``:
 EDVR-M at 64 channels, 8 deform groups, on 270x480 frames padded to

@@ -111,7 +111,7 @@ def launch(fn, device, *args):
     device guard is entered only when `device` is not the current one. The
     stream is read as a raw pointer: ``torch._C._cuda_getCurrentRawStream``
     costs the host a few percent of ``torch.cuda.current_stream()``, which
-    builds a Stream object (``bench/probe_backward.py`` times both)."""
+    builds a Stream object."""
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index
     if index == current:

@@ -37,7 +37,10 @@ frame launches it once for each convolution ``takes_k3`` admits, each such
 output within K3's tolerance of the library convolution on the same
 input, and the SR frames and carried state within the 8K configuration's
 ``sr_rmse`` and ``state_rel`` limits of the library-only run. K4 bitwise,
-out-of-range indices clamped.
+out-of-range indices clamped, at sizes up to its microbenchmark's (R 2048,
+L 128 bf16, P 2^20). The microbenchmark entry points at small sizes: each
+launches its own kernel and no other, K3 within its envelope, K4's check
+mode bitwise.
 
 The serving slice: the PNG codec round-trips exactly on this machine's
 zlib and numpy (no card needed: it also runs on the CPU); K1 at batch 2 on
@@ -595,7 +598,7 @@ def test_k3_route_in_the_8k_stream(cuda_device, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,lanes,points,dtype", [
     (64, 128, 256, torch.float32), (1000, 72, 4099, torch.bfloat16),
-    (3, 4, 1, torch.float32)])
+    (3, 4, 1, torch.float32), (2048, 128, 1 << 20, torch.bfloat16)])
 def test_gather_kernel_matches_plain(gen, cuda_device, rows, lanes, points,
                                      dtype):
     tab = torch.from_numpy(gen.standard_normal((rows, lanes))
@@ -608,6 +611,33 @@ def test_gather_kernel_matches_plain(gen, cuda_device, rows, lanes, points,
     assert gather_rows.launches == before + 1
     assert torch.equal(got, gather_rows_plain(tab, idx))
     assert torch.equal(got[0], tab[0])
+
+
+@pytest.mark.cuda
+def test_microbench_entry_points_on_the_card(cuda_device):
+    """``microbench_conv.run`` and ``microbench_gather.run`` at small
+    sizes and ``microbench_gather.main(["--check"])``: each launches its
+    own kernel and no other; K3 within its envelope, K4 bitwise."""
+    from refvsr_tpu_torch.bench import microbench_conv, microbench_gather
+    from refvsr_tpu_torch.ops.kernels.warp_sample import warp_sample_banded
+    fns = (warp_sample, warp_sample_banded, warp_sample_backward,
+           argmax_matmul, argmax_matmul_backward, conv3x3_bias, gather_rows,
+           deform_conv)
+
+    def launched(run):
+        before = [f.launches for f in fns]
+        out = run()
+        return out, {f.__name__: f.launches - b
+                     for f, b in zip(fns, before) if f.launches != b}
+
+    conv, n = launched(lambda: microbench_conv.run((64, 128), 48, iters=3))
+    assert set(n) == {"conv3x3_bias"} and n["conv3x3_bias"] > 0
+    assert conv["finite"] and conv["ratio"] <= 1.0
+    gather, n = launched(lambda: microbench_gather.run(256, 128, 4096))
+    assert set(n) == {"gather_rows"} and n["gather_rows"] > 0
+    assert gather["equal"]
+    rc, n = launched(lambda: microbench_gather.main(["--check"]))
+    assert rc == 0 and n == {"gather_rows": 3}
 
 
 def test_png_round_trip(gen):

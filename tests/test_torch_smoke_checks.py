@@ -11,14 +11,28 @@
   holds another run to them: a run held to its own recording gives the
   same loss and gradients bit for bit, and a run on other inputs takes the
   recorded positions (its own differing choices counted), rows picked as
-  a rank picks its share of the batch."""
+  a rank picks its share of the batch.
+- The kernel cases (``k1_case``, ``k1_bwd_case``, ``k2_case``,
+  ``k2_bwd_case``, ``k5_case``) and ``checking_k3`` on the CPU, where each
+  wrapper runs its plain version: each passes on sound inputs, and ends
+  the smoke when
+  its wrapper returns the plain result with a planted fault (K1: a dead
+  point made non-zero, or one value moved; the others: one value moved by
+  10x the case's tolerance, and K2 a pick of a worse or a missing row; K3:
+  the epilogue moved by one bf16 ulp)."""
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from refvsr_tpu_torch.bench.dcn_cases import make_inputs as make_dcn_inputs
+from refvsr_tpu_torch.bench.microbench_conv import make_inputs
 from refvsr_tpu_torch.losses.contextual import cx_core
+from refvsr_tpu_torch.ops.kernels import argmax_matmul as k2_mod
+from refvsr_tpu_torch.ops.kernels import conv3x3 as k3_mod
+from refvsr_tpu_torch.ops.kernels import deform_conv as k5_mod
+from refvsr_tpu_torch.ops.kernels import warp_sample as k1_mod
 
 torch.set_num_threads(2)
 
@@ -150,7 +164,7 @@ def test_spatial_check_fails_errors_gathered_in_the_seam_band(small_frame):
 
 @pytest.mark.parametrize("rows", [1, 5, 256])
 def test_k3_ratio_is_the_envelope_over_bands(rows):
-    """Phase 8 holds each of K3's calls in the 8K stream to its envelope
+    """Phase 7 holds each of K3's calls in the 8K stream to its envelope
     around the plain version in bands of rows; the bands give the ratio
     of the whole image."""
     from refvsr_tpu_torch.bench.microbench_conv import envelope_ratio
@@ -197,3 +211,145 @@ def test_cx_choices_record_and_hold():
     part = _cx(x[2:], y[2:], held=rec, rows=slice(2, 4), flips=flips)
     assert flips[1] == 2 * 2 * 30 and flips[0] < flips[1] // 10
     assert np.isfinite(part[0])
+
+
+def _moved(t, by):
+    """t with its largest-magnitude value moved by `by`."""
+    t = t.clone()
+    t.view(-1)[t.abs().argmax()] += by
+    return t
+
+
+def _k1_inputs():
+    gen = torch.Generator().manual_seed(5)
+    x = torch.rand((2, 17, 19, 5), generator=gen) * 2 - 1
+    flow = chip_smoke._poison(chip_smoke._smooth_flow(gen, 2, 32, 36, 6.0,
+                                                      "cpu"), gen)
+    return x, flow
+
+
+def _k2_inputs(n=2, l_ref=70, l_lr=90, d=16):
+    gen = torch.Generator().manual_seed(6)
+    ref, lr = (torch.nn.functional.normalize(
+        torch.randn((n, rows, d), generator=gen), dim=2)
+        for rows in (l_ref, l_lr))
+    return ref, lr
+
+
+def _k1(fault):
+    x, flow = _k1_inputs()
+    real = k1_mod.warp_sample
+
+    def faulty(x, flow):
+        out = real(x, flow)
+        if fault == "dead":
+            dead = chip_smoke._dead(x.shape[1:3], flow).nonzero()[0]
+            out = out.clone()
+            out[tuple(dead)][0] = 0.5
+            return out
+        return _moved(out, 10 * 1e-5 * float(x.abs().max()))
+    return (k1_mod, "warp_sample", faulty,
+            lambda: chip_smoke.k1_case("cpu", x, flow, 1e-5, need_dead=True))
+
+
+def _k1_bwd(fault):
+    x, flow = _k1_inputs()
+    g = torch.rand((2, 32, 36, 5), generator=torch.Generator().manual_seed(7))
+    real = k1_mod.warp_sample_backward
+
+    def faulty(g, flow, x_shape, x=None, need_dx=True):
+        dx, dflow = real(g, flow, x_shape, x, need_dx)
+        if fault == "dx":
+            return _moved(dx, 10 * 1e-5 * float(dx.abs().max())), dflow
+        return dx, _moved(dflow, 10 * 1e-5 * float(dflow.abs().max()))
+    return (k1_mod, "warp_sample_backward", faulty,
+            lambda: chip_smoke.k1_bwd_case("cpu", g, flow, tuple(x.shape), x,
+                                           need_dead=True))
+
+
+def _k2(fault):
+    ref, lr = _k2_inputs()
+    real = k2_mod.argmax_matmul
+
+    def faulty(ref, lr):
+        conf, idx = real(ref, lr)
+        if fault == "conf":
+            return _moved(conf, 10 * 1e-4), idx
+        idx = idx.clone()
+        # LR row 0 of item 0 picks its worst ref row, or one past the last
+        idx[0, 0] = ((ref[0] @ lr[0, 0]).argmin() if fault == "pick"
+                     else ref.shape[1])
+        return conf, idx
+    return (k2_mod, "argmax_matmul", faulty,
+            lambda: chip_smoke.k2_case("cpu", ref, lr))
+
+
+def _k2_bwd(fault):
+    ref, lr = _k2_inputs()
+    _, index = k2_mod.argmax_matmul_plain(ref, lr)
+    g = torch.randn(index.shape, generator=torch.Generator().manual_seed(8))
+    real = k2_mod.argmax_matmul_backward
+
+    def faulty(ref, lr, index, g, needs=(True, True)):
+        d_ref, d_lr = real(ref, lr, index, g, needs)
+        if fault == "d_ref":
+            return _moved(d_ref, 10 * 1e-5 * float(d_ref.abs().max())), d_lr
+        return d_ref, _moved(d_lr, 10 * 1e-6 * float(d_lr.abs().max()))
+    return (k2_mod, "argmax_matmul_backward", faulty,
+            lambda: chip_smoke.k2_bwd_case("cpu", ref, lr, index, g))
+
+
+def _k3(fault):
+    x, wm, bias = make_inputs(13, 21, 16)
+    real = k3_mod.conv3x3_bias
+
+    def faulty(x, wm, bias):
+        y = real(x, wm, bias)
+        if not bias.any():
+            return y
+        # the epilogue one bf16 ulp off at one value
+        y = y.clone()
+        v = y.view(-1)[:1].float()
+        y.view(-1)[:1] = (v + chip_smoke.bf16_ulp(v)).bfloat16()
+        return y
+    faulty.launches = 0
+    cases = []
+
+    def run():
+        with chip_smoke.checking_k3(cases, "cpu"):
+            k3_mod.conv3x3_bias(x, wm, bias)
+            k3_mod.conv3x3_bias(x, wm, bias)
+        assert [(c["calls"], c["ratio"]) for c in cases] == [(2, 0.0)]
+    return k3_mod, "conv3x3_bias", faulty, run
+
+
+def _k5(fault):
+    x, off, mask, wgt, bias = make_dcn_inputs(2, 9, 11, c=32, dg=4)
+    real = k5_mod.deform_conv
+
+    def faulty(*args):
+        out = real(*args)
+        return _moved(out, 10 * 1e-5 * float(out.abs().max()))
+    return (k5_mod, "deform_conv", faulty,
+            lambda: chip_smoke.k5_case("cpu", x, off, mask, wgt, bias, 4))
+
+
+@pytest.mark.parametrize("case,fault", [
+    (_k1, None), (_k1, "dead"), (_k1, "moved"),
+    (_k1_bwd, None), (_k1_bwd, "dx"), (_k1_bwd, "dflow"),
+    (_k2, None), (_k2, "conf"), (_k2, "pick"), (_k2, "range"),
+    (_k2_bwd, None), (_k2_bwd, "d_lr"), (_k2_bwd, "d_ref"),
+    (_k3, None), (_k3, "epilogue"), (_k5, None), (_k5, "moved")])
+def test_kernel_checks_pass_sound_calls_and_stop_at_a_fault(monkeypatch,
+                                                             case, fault):
+    """The smoke's case of each kernel on the CPU, where the wrapper runs
+    its plain version: sound, it passes; with the wrapper returning the
+    plain result with a planted fault, it ends the smoke."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    module, name, faulty, run = case(fault)
+    if fault is None:
+        run()
+        return
+    monkeypatch.setattr(module, name, faulty)
+    with pytest.raises(SystemExit):
+        run()
