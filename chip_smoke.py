@@ -35,7 +35,7 @@ outside a checkout of the repository. Phases, each fatal on failure:
    ``forward_stream`` windows and the bench's numerics gate, its record
    checked (keys, metric ``stream_fps_8k``, ``out_shape``, 10 K1 and 1 K2
    launches a window) and logged, each kernel's launches counted (K3 for
-   the square 3x3 convolutions ``blocks.takes_k3`` admits); then each
+   the square 3x3 convolutions ``blocks.routed_kernel`` names "k3"); then each
    kernel held against its plain version on the inputs the path gave it:
    every call of a further streamed window (K3's each as it runs, its
    bias-free sum within 2^-7 |plain| + 2^-8 max|plain| and its epilogue
@@ -106,7 +106,8 @@ outside a checkout of the repository. Phases, each fatal on failure:
    f32, seeded random weights) on a seeded RealMCVSR-layout tree (LRx4
    270x480 in, HR 1080x1920 ground truth; two videos of 5 and 1 frames)
    written by the port's PNG encoder: ms per window on the host, the peak,
-   32 K1, 1 K2 and 20 K5 launches per window, the score file (a line per
+   32 K1, 1 K2 and 20 K5 launches and some K6 ones per window, the score
+   file (a line per
    frame, a MEAN line, a TOTAL line) and every PNG/JPEG dump decoded or
    read back at its shape; then ``--eval_mode FOV`` and ``conf`` on the
    second video, their files checked;
@@ -126,8 +127,8 @@ outside a checkout of the repository. Phases, each fatal on failure:
    handed in per window, each rank's peak, every banded K1 and K2 call of
    its last window held against the plain versions (the ranks in turns),
    and the gathered frames against the one-rank stream of the same net
-   and frames (the bands' convolutions on cuDNN, the replicated stages'
-   and the one-rank stream's on K3, as production runs them), with the
+   and frames (the square 3x3 convolutions on K3 in both, on the rows
+   each band's output reads), with the
    difference's profile by output row (at
    the band seam or away from it); a control with no halo (a first and one
    streamed window) must fail that check; after phase 9's policy, the
@@ -137,7 +138,8 @@ outside a checkout of the repository. Phases, each fatal on failure:
    parameters equal on both ranks after the update and after two timed
    steps, the launches and peaks; after phase 14, the same eval CLI with
    ``--spatial_devices 2`` (``run.main`` spawns the ranks), its score
-   lines against the one-rank run's; and last ``run.main(["--is_train",
+   lines against the one-rank run's (K6 on both), with a halo-0 control
+   that must fail; and last ``run.main(["--is_train",
    "--devices", "2", ...])`` on RefVSR_MFID (full width, -b 2) over a
    small seeded tree: rank 0's log tree and checkpoint, and no file opened
    for writing by rank 1.
@@ -151,10 +153,13 @@ outside a checkout of the repository. Phases, each fatal on failure:
    inputs captured.
 
 The calls captured in phases 13 to 15 and 17 (each new shape of one
-streamed IR window, K5's among them, and of the 8K CLI's first window;
-every backward call of one IR step and of the bench's train step, its
-forward calls once per shape) are held against the plain versions with
-the others. Phases 13 to 15 run under PyTorch's default f32 policy, as
+streamed IR window, K5's and K6's among them, and of the 8K CLI's first
+window, K6's among them; every backward call of one IR step and of the bench's train step, its
+forward calls once per shape) and K6's in one streamed window of
+RefVSR_MFID as the 1080p f32 cell runs it (270x480, 48 channels; each
+new shape, the stream's most frequent 270x480x48 among them; run after
+phase 9) are held against the plain versions with the others. Phases 13
+to 15 run under PyTorch's default f32 policy, as
 11 does.
 
 Then one JSON line of the phases' summaries, the seconds of each phase
@@ -661,8 +666,9 @@ BENCH_STREAM_KEYS = ("metric", "value", "unit", "vs_baseline", "raw_fps",
                      "out_shape", "lanes", "k1_launches", "k2_launches",
                      "ms_per_window", "peak_bytes", "card")
 # the kernels of the stream and training paths; K3 runs on the bf16
-# inference paths (``blocks.takes_k3``) and its microbenchmark, K4 only on
-# its microbenchmark, so the f32 paths launch neither
+# inference paths (``blocks.routed_kernel``) and its microbenchmark, K4 only
+# on its microbenchmark, so the f32 paths launch neither (K6 takes their
+# square 3x3 convolutions in inference)
 KERNEL_FNS = ("warp_sample", "warp_sample_backward", "argmax_matmul",
               "argmax_matmul_backward")
 K3_K4 = ("conv3x3_bias", "gather_rows")
@@ -671,6 +677,7 @@ K3_K4 = ("conv3x3_bias", "gather_rows")
 def _kernel_fns():
     from refvsr_tpu_torch.ops.kernels import argmax_matmul as k2
     from refvsr_tpu_torch.ops.kernels import conv3x3 as k3
+    from refvsr_tpu_torch.ops.kernels import conv3x3_f32 as k6
     from refvsr_tpu_torch.ops.kernels import deform_conv as k5
     from refvsr_tpu_torch.ops.kernels import gather_rows as k4
     from refvsr_tpu_torch.ops.kernels import warp_sample as k1
@@ -680,6 +687,7 @@ def _kernel_fns():
             "argmax_matmul": k2.argmax_matmul,
             "argmax_matmul_backward": k2.argmax_matmul_backward,
             "conv3x3_bias": k3.conv3x3_bias,
+            "conv3x3_f32": k6.conv3x3_f32,
             "deform_conv": k5.deform_conv,
             "gather_rows": k4.gather_rows}
 
@@ -2034,6 +2042,50 @@ def phase_train_entry(dev, card):
     return summary, calls, amp_calls
 
 
+def phase_mfid_f32(dev, card):
+    """RefVSR_MFID as the 1080p f32 cell runs it (30 blocks, 48 channels,
+    f32, seeded random weights) through StreamRunner at 270x480: a first
+    window, then a streamed one whose K6 calls are captured at each new
+    shape, the stream's most frequent (270x480x48: seven 64-pixel strips
+    and a half one) among them. Returns the captured calls."""
+    from refvsr_tpu_torch.configs import get_config
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.models.refvsr import build_refvsr
+    from refvsr_tpu_torch.ops.kernels import conv3x3_f32 as k6_mod
+
+    cfg = get_config("RefVSR_MFID")
+    check((cfg.network, cfg.num_blocks, cfg.mid_channels, cfg.flag_HD_in)
+          == ("RefVSR", 30, 48, False), f"RefVSR_MFID config {cfg}")
+    net = build_refvsr(cfg, device=dev, seed=31)
+    runner = StreamRunner(net, cfg.reset_branch, device=dev)
+    t, (h, w) = cfg.frame_num, IR_HW
+    gen = torch.Generator(device=dev).manual_seed(32)
+    lrs, refs = (torch.rand((1, t + 1, h, w, 3), generator=gen, device=dev)
+                 for _ in range(2))
+    calls = {"conv3x3_f32": []}
+    state = dict(on=False)
+    with capturing(k6_mod, "conv3x3_f32", calls["conv3x3_f32"], set(),
+                   when=lambda: state["on"]):
+        runner.process_device(lrs[:, :t], refs[:, :t], is_first=True)
+        torch.cuda.synchronize()
+        before = k6_mod.conv3x3_f32.launches
+        state["on"] = True
+        out, _ = runner.process_device(lrs[:, 1:], refs[:, 1:],
+                                       is_first=False)
+        torch.cuda.synchronize()
+        state["on"] = False
+        launches = k6_mod.conv3x3_f32.launches - before
+    shapes = sorted(tuple(a[0].shape) for a, _ in calls["conv3x3_f32"])
+    check(launches > 0 and (h, w, 48) in shapes and _finite(out),
+          f"RefVSR_MFID f32 streamed window: {launches} K6 launches, "
+          f"captured shapes {shapes}")
+    log(f"RefVSR_MFID f32 streamed window at {IR_HW}: {launches} K6 "
+        f"launches, shapes {shapes} captured  [{card}]")
+    del runner, net, out
+    torch.cuda.empty_cache()
+    return calls
+
+
 # ------------------------------------------- RefVSR-IR and the eval CLI
 
 # the IR eval tree: RealMCVSR's test layout at its size (LRx4 270x480 for
@@ -2178,7 +2230,7 @@ def _score_lines(d, mode):
 
 
 def ir_eval_instruments(rec):
-    """Time each window (synchronised) with its K1/K2/K5 launches; capture
+    """Time each window (synchronised) with its K1/K2/K5/K6 launches; capture
     the kernels' inputs in window IR_CAPTURED_WINDOW. A window after which
     the runner's count is 1 was a first window."""
     from refvsr_tpu_torch.eval.stream import StreamRunner
@@ -2200,6 +2252,7 @@ def ir_eval_instruments(rec):
                     k1=after["warp_sample"] - before["warp_sample"],
                     k2=after["argmax_matmul"] - before["argmax_matmul"],
                     k5=after["deform_conv"] - before["deform_conv"],
+                    k6=after["conv3x3_f32"] - before["conv3x3_f32"],
                     first=self.count == 1))
                 rec["gate"] = False
         return f
@@ -2218,10 +2271,12 @@ def phase_ir_eval(dev, card):
     from refvsr_tpu_torch.data.png import read_image
     from refvsr_tpu_torch.models import matching as matching_mod
     from refvsr_tpu_torch.ops import warp as warp_mod
+    from refvsr_tpu_torch.ops.kernels import conv3x3_f32 as k6_mod
     from refvsr_tpu_torch.ops.kernels import deform_conv as k5_mod
 
     summary = dict(card=card)
-    calls = {"warp_sample": [], "argmax_matmul": [], "deform_conv": []}
+    calls = {"warp_sample": [], "argmax_matmul": [], "deform_conv": [],
+             "conv3x3_f32": []}
     seen = {k: set() for k in calls}
     with tree("ir") as (root, summary["tree_wait_s"]):
         n_frames = sum(n for _, n in IR_VIDEOS)
@@ -2249,7 +2304,9 @@ def phase_ir_eval(dev, card):
                           calls["argmax_matmul"], seen["argmax_matmul"],
                           when=gate), \
                 capturing(k5_mod, "deform_conv", calls["deform_conv"],
-                          seen["deform_conv"], when=gate):
+                          seen["deform_conv"], when=gate), \
+                capturing(k6_mod, "conv3x3_f32", calls["conv3x3_f32"],
+                          seen["conv3x3_f32"], when=gate):
             t0 = time.perf_counter()
             with clock("quan_qual"):
                 res = run.main(argv + ["--eval_mode", "quan_qual",
@@ -2263,6 +2320,9 @@ def phase_ir_eval(dev, card):
               == [(want_k1, 1, 20)] * n_frames,
               f"IR eval windows' K1/K2/K5 launches "
               f"{[(w['k1'], w['k2'], w['k5']) for w in rec['windows']]}")
+        check(all(w["k6"] > 0 for w in rec["windows"]),
+              f"IR eval windows' K6 launches "
+              f"{[w['k6'] for w in rec['windows']]}")
         check(not launches["warp_sample_backward"]
               and not launches["argmax_matmul_backward"]
               and not any(launches[k] for k in K3_K4),
@@ -2308,7 +2368,8 @@ def phase_ir_eval(dev, card):
             f"{(4 * h, 4 * w)}, {n_frames} windows): {main_s:.1f} s; "
             f"{summary['ms_per_window']:.1f} ms per streamed window on the "
             f"host (synchronised; first window {first_ms:.1f} ms); "
-            f"K1/K2/K5 launches per window ({want_k1}, 1, 20); peak "
+            f"K1/K2/K5 launches per window ({want_k1}, 1, 20), K6 "
+            f"{sorted({w['k6'] for w in rec['windows']})}; peak "
             f"allocated {peak / 2**30:.2f} GiB; PSNR {res['PSNR']:.4f} SSIM "
             f"{res['SSIM']:.4f}; {len(lines)} score lines, {dumps} PNG/JPEG "
             f"dumps decoded  [{card}]")
@@ -2345,15 +2406,17 @@ def phase_ir_eval(dev, card):
     return summary, calls
 
 
-# the spatial eval CLI's score lines against the one-rank CLI's (f32,
-# PyTorch's default TF32 convolutions, whose algorithms cuDNN picks by the
-# band's shape): PSNR in dB and SSIM. On the H100 the sound run gave
-# 1.5e-4 dB and 0 (three runs alike), the control with no halo (every
-# warp wrong at its band's edge rows) 4.6e-4 dB and 0: the PSNR limit is
-# their geometric mean, the SSIM limit one unit of the score lines' last
-# digit. The random weights' SR is far from the truth, so a seam fault
-# moves the PSNR little
-EVAL_SPATIAL_PSNR_LIMIT, EVAL_SPATIAL_SSIM_LIMIT = 2.6e-4, 1e-5
+# the spatial eval CLI's score lines against the one-rank CLI's (f32: the
+# square 3x3 convolutions on K6 in both, a band's on the rows its output
+# reads; the rest on PyTorch's default TF32 convolutions, whose
+# algorithms cuDNN picks by the band's shape): PSNR in dB and SSIM. On the
+# H100 the sound run gave 0 and 0, the control with no halo (every warp
+# wrong at its band's edge rows) 3.1e-4 dB and 0: the PSNR limit is the
+# geometric mean of that and one unit of the score lines' last digit, the
+# SSIM limit one unit. (With every convolution on cuDNN in both, the
+# sound run had read 1.5e-4 dB.) The random weights' SR is far from the
+# truth, so a seam fault moves the PSNR little
+EVAL_SPATIAL_PSNR_LIMIT, EVAL_SPATIAL_SSIM_LIMIT = 5.6e-5, 1e-5
 
 
 def _score_diff(want, got):
@@ -2383,8 +2446,9 @@ def phase_eval_cli_8k(dev, card):
     from refvsr_tpu_torch import run
     from refvsr_tpu_torch.models import matching as matching_mod
     from refvsr_tpu_torch.ops import warp as warp_mod
+    from refvsr_tpu_torch.ops.kernels import conv3x3_f32 as k6_mod
 
-    calls = {"warp_sample": [], "argmax_matmul": []}
+    calls = {"warp_sample": [], "argmax_matmul": [], "conv3x3_f32": []}
     seen = {k: set() for k in calls}
     state = dict(first=True)
 
@@ -2411,7 +2475,9 @@ def phase_eval_cli_8k(dev, card):
                           when=lambda: state["first"]), \
                 capturing(matching_mod, "argmax_matmul",
                           calls["argmax_matmul"], seen["argmax_matmul"],
-                          when=lambda: state["first"]):
+                          when=lambda: state["first"]), \
+                capturing(k6_mod, "conv3x3_f32", calls["conv3x3_f32"],
+                          seen["conv3x3_f32"], when=lambda: state["first"]):
             t0 = time.perf_counter()
             with clock("one rank"):
                 res = run.main(argv)
@@ -3348,6 +3414,21 @@ def k5_case(name, x, offset, mask, weight, bias, deform_groups):
         f"{limit:.3e})")
 
 
+def k6_case(name, x, wp, bias):
+    """K6 kernel vs plain on one input: finite, and within 1e-5 of the
+    largest plain output (f32 sums of 9C products split into TF32 parts, in
+    another order than cuDNN's)."""
+    from refvsr_tpu_torch.ops.kernels import conv3x3_f32 as k6
+    got = k6.conv3x3_f32(x, wp, bias)
+    want = k6.conv3x3_f32_plain(x, wp, bias)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    limit = 1e-5 * float(want.abs().max())
+    check(_finite(got) and err <= limit,
+          f"K6 {name}: max |kernel - plain| {err} > {limit}, or not finite")
+    log(f"K6 {name}: max_abs_err {err:.3e} (limit {limit:.3e})")
+
+
 def path_cases(calls_by_path):
     """Each kernel against its plain version on the inputs the paths gave
     it: {path label: {kernel: captured calls}} (a streamed window's every
@@ -3370,13 +3451,16 @@ def path_cases(calls_by_path):
     def k5(label, args, kw):
         k5_case(label, *args, **kw)
 
+    def k6(label, args, kw):
+        k6_case(label, *args, **kw)
+
     def card(v):
         return v.cuda() if torch.is_tensor(v) else v
 
     for name, fn in (("warp_sample", k1), ("argmax_matmul", k2),
                      ("warp_sample_backward", k1_bwd),
                      ("argmax_matmul_backward", k2_bwd),
-                     ("deform_conv", k5)):
+                     ("deform_conv", k5), ("conv3x3_f32", k6)):
         for where, calls in calls_by_path.items():
             for i, (a, kw) in enumerate(calls.get(name, [])):
                 with clock("to the card"):
@@ -3443,6 +3527,8 @@ def smoke():
         serving, serve_calls = phase_serving(dev, card)
     with clock("pipelined"):
         pipelined, pipe_calls = phase_pipelined(dev, card)
+    with clock("mfid_f32"):
+        mfid_calls = phase_mfid_f32(dev, card)
     torch.cuda.empty_cache()
     with clock("spatial"):
         spatial = phase_spatial(dev, card)
@@ -3457,7 +3543,7 @@ def smoke():
             train, train_calls = phase_training(dev, card)
         with clock("to_host"):
             to_host(stream_calls, first_calls, serve_calls, pipe_calls,
-                    train_calls)
+                    mfid_calls, train_calls)
         torch.cuda.empty_cache()
         with clock("bench_train"):
             bench_train, bench_calls = phase_bench_train(dev, card,
@@ -3490,6 +3576,7 @@ def smoke():
                     "train step": train_calls,
                     "predict": serve_calls,
                     "pipelined dispatch": pipe_calls,
+                    "1080p f32 stream window (forward_stream)": mfid_calls,
                     "train entry (step 1, validation window 0)": entry_calls,
                     "is_amp step": amp_calls,
                     "IR eval window (forward_stream)": ir_calls,

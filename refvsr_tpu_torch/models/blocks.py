@@ -2,9 +2,10 @@
 
 Activations are NHWC tensors. ``Conv2d`` hands them to cuDNN as NCHW views
 with channels-last strides (a permute, no copy) and permutes the result
-back, or to K3 (``ops/kernels/conv3x3.py``) where ``takes_k3`` holds, so
-every module here takes and returns NHWC. Submodule names give the
-reference torch state-dict keys (``flax_to_torch_keymap``'s names), so a
+back, or to a hand-written kernel where ``routed_kernel`` names one: K3
+(``ops/kernels/conv3x3.py``) for bf16, K6 (``ops/kernels/conv3x3_f32.py``)
+for f32; so every module here takes and returns NHWC. Submodule names give
+the reference torch state-dict keys (``flax_to_torch_keymap``'s names), so a
 reference checkpoint loads with ``load_state_dict``."""
 
 from __future__ import annotations
@@ -16,24 +17,42 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from refvsr_tpu_torch.ops.image import pixel_shuffle
-from refvsr_tpu_torch.ops.kernels import conv3x3
+from refvsr_tpu_torch.ops.kernels import conv3x3, conv3x3_f32
 from refvsr_tpu_torch.parallel import spatial
 from refvsr_tpu_torch.utils import trace
 
 
-def takes_k3(conv: nn.Conv2d, x: torch.Tensor) -> bool:
-    """Whether ``Conv2d.forward`` computes `conv` on the NHWC `x` with K3:
-    on the card, no gradient asked for (K3 has no backward), no spatial
-    context, a 3x3 stride-1 kernel with bias, C in == C out, weights of
-    x's dtype, and one image that K3 takes (``conv3x3.accepts``: bf16, C a
-    multiple of 16 up to 80, contiguous, 16-byte aligned)."""
-    return (x.is_cuda and not torch.is_grad_enabled()
-            and spatial.active() is None
+def routed_kernel(conv: nn.Conv2d, x: torch.Tensor) -> str | None:
+    """The kernel that computes `conv` on the NHWC `x` (an image, or under
+    a spatial context the rows of a band ``parallel/spatial.conv2d``
+    fetched), or None for cuDNN: on the card, no gradient asked for (the
+    kernels have no backward), a 3x3 stride-1 kernel with bias, C in == C
+    out, weights of x's dtype and one image; then by what the image shows,
+    "k3" where K3 takes it (``conv3x3.accepts``: bf16, C a multiple of 16
+    up to 80) and "k6" where K6 does (``conv3x3_f32.accepts``: f32, C 32,
+    36 or 48), both contiguous and 16-byte aligned."""
+    if not (x.is_cuda and not torch.is_grad_enabled()
             and conv.kernel_size == (3, 3) and conv.stride == (1, 1)
             and conv.bias is not None
             and conv.in_channels == conv.out_channels
             and conv.weight.dtype == x.dtype
-            and x.dim() == 4 and x.shape[0] == 1 and conv3x3.accepts(x[0]))
+            and x.dim() == 4 and x.shape[0] == 1):
+        return None
+    if conv3x3.accepts(x[0]):
+        return "k3"
+    if conv3x3_f32.accepts(x[0]):
+        return "k6"
+    return None
+
+
+def _pack_k3(conv):
+    # wm (9C, C), the HWIO kernel flattened tap-major
+    c = conv.in_channels
+    return conv.weight.permute(2, 3, 1, 0).reshape(9 * c, c).contiguous()
+
+
+# each routed kernel's packed weight from a module's OIHW one
+_PACKS = {"k3": _pack_k3, "k6": lambda conv: conv3x3_f32.pack(conv.weight)}
 
 
 def _version(t: torch.Tensor):
@@ -45,40 +64,52 @@ class Conv2d(nn.Conv2d):
     """torch Conv2d on NHWC tensors: square kernel, padding k//2, bias.
     Parameters are the usual OIHW ``weight`` and ``bias``. Under an active
     spatial context the input is this rank's band of rows
-    (``parallel/spatial.conv2d``); where ``takes_k3`` holds, K3 computes it;
-    anything else goes to cuDNN. Under a profiler session each call is the
-    span ``refvsr.conv`` (``utils/trace.py``)."""
+    (``parallel/spatial.conv2d``); where ``routed_kernel`` names K3 or K6,
+    that kernel computes it; anything else goes to cuDNN. Under a profiler
+    session each call is the span ``refvsr.conv`` (``utils/trace.py``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          kernel_size // 2)
-        self._k3_key = self._k3_weights = None
+        self._packed = None
 
-    def k3_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """K3's operands: wm (9C, C), the HWIO kernel flattened tap-major,
-        and a copy of the bias as (1, 1, C). Plain attributes, not
-        parameters or buffers, so the state dict keeps its keys; packed
-        again when the parameters' storage, version (an in-place update,
+    def packed(self, kernel: str) -> tuple[torch.Tensor, torch.Tensor]:
+        """The operands of `kernel` ("k3" or "k6") after x: the weight as
+        it takes it (K3: wm (9C, C), the HWIO kernel flattened tap-major;
+        K6: ``conv3x3_f32.pack``'s layout, both TF32 parts) and a copy of
+        the bias as (1, 1, C). A plain attribute, not parameters or
+        buffers, so the state dict keeps its keys; packed again when the
+        kernel or the parameters' storage, version (an in-place update,
         ``load_state_dict``) or dtype changes."""
         w, b = self.weight, self.bias
-        key = (w.data_ptr(), _version(w), b.data_ptr(), _version(b), w.dtype)
-        if key != self._k3_key:
-            c = self.in_channels
+        key = (kernel, w.data_ptr(), _version(w), b.data_ptr(), _version(b),
+               w.dtype)
+        if self._packed is None or self._packed[0] != key:
             with torch.no_grad():
-                self._k3_weights = (
-                    w.permute(2, 3, 1, 0).reshape(9 * c, c).contiguous(),
-                    b.reshape(1, 1, c).clone())
-            self._k3_key = key
-        return self._k3_weights
+                self._packed = (key, (_PACKS[kernel](self),
+                                      b.reshape(1, 1, self.in_channels)
+                                      .clone()))
+        return self._packed[1]
+
+    def routed(self, x: torch.Tensor) -> torch.Tensor | None:
+        """This convolution of the NHWC x, SAME-padded in H and W, by the
+        kernel ``routed_kernel`` names; None where it names none."""
+        kernel = routed_kernel(self, x)
+        if kernel is None:
+            return None
+        fn = (conv3x3.conv3x3_bias if kernel == "k3"
+              else conv3x3_f32.conv3x3_f32)
+        return fn(x[0], *self.packed(kernel))[None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with trace.span("refvsr.conv"):
             ctx = spatial.active()
             if ctx is not None:
                 return spatial.conv2d(ctx, self, x)
-            if takes_k3(self, x):
-                return conv3x3.conv3x3_bias(x[0], *self.k3_weights())[None]
+            y = self.routed(x)
+            if y is not None:
+                return y
             y = super().forward(x.permute(0, 3, 1, 2))
             return y.permute(0, 2, 3, 1)
 

@@ -11,6 +11,8 @@ consulted while a ``spatial_sharding`` context is active:
 - (a) every ``blocks.Conv2d``: the rows its output band reads, fetched from
   the neighbours (zeros past the image, its own zero padding), then the
   convolution with no H padding; strided ones too, at any band start;
+  where a hand-written kernel takes those rows as it takes a whole image
+  on one rank (``blocks.routed_kernel``: K3, K6), that kernel, cropped;
 - (b) the integer-ratio resizes (bicubic x2, x0.5, x scale, nearest x0.5)
   and ``pixel_shuffle``: the input rows the output band's taps read,
   within the image (the resize clamps where the image ends, as the whole
@@ -281,7 +283,10 @@ def band_of(x: torch.Tensor, n: int, dim: int = 1,
 def conv2d(ctx: SpatialCtx, conv, x: torch.Tensor) -> torch.Tensor:
     """``blocks.Conv2d`` on this rank's band (N, Hs, W, C): the rows its
     output band reads (zeros past the image), then the convolution with
-    no H padding."""
+    no H padding; or, where ``blocks.routed_kernel`` sends those rows to a
+    hand-written kernel, as on one rank, that kernel's SAME convolution of
+    them, less its first and last p rows (the ones its zero padding
+    reaches)."""
     k, s, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
     n = ctx.whole(x)
     no = (n + 2 * p - k) // s + 1
@@ -290,6 +295,9 @@ def conv2d(ctx: SpatialCtx, conv, x: torch.Tensor) -> torch.Tensor:
         a, b = mesh.part(no, ctx.world, j)
         return a * s - p, (b - 1) * s - p + k
     band = fetch_rows(ctx, x, n, span)
+    out = conv.routed(band)
+    if out is not None:
+        return out[:, p:out.shape[1] - p]
     out = F.conv2d(band.permute(0, 3, 1, 2), conv.weight, conv.bias,
                    conv.stride, (0, p))
     return out.permute(0, 2, 3, 1)

@@ -43,12 +43,13 @@ Names; PERF.md section 3 gives the metric each one serves:
   (``models/edvr.modulated_deform_conv``), 20 a window of EDVR's PCD
   alignment (5 frames x levels 3, 2, 1 and the cascade).
 - ``refvsr.conv``: ``models/blocks.Conv2d.forward``.
-- ``refvsr.k1``, ``refvsr.k2``, ``refvsr.k3``, ``refvsr.k5``: the K1, K2,
-  K3 and K5 wrappers' forward calls (``ops/kernels``): checks, the
-  output's allocation and the launch. ``refvsr.k3`` lies inside
-  ``refvsr.conv`` for each convolution routed to K3
-  (``models/blocks.takes_k3``), ``refvsr.k5`` inside ``refvsr.dcn`` for
-  each deformable convolution routed to K5 (``models/edvr.takes_k5``)."""
+- ``refvsr.k1``, ``refvsr.k2``, ``refvsr.k3``, ``refvsr.k5``,
+  ``refvsr.k6``: the K1, K2, K3, K5 and K6 wrappers' forward calls
+  (``ops/kernels``): checks, the output's allocation and the launch.
+  ``refvsr.k3`` and ``refvsr.k6`` lie inside ``refvsr.conv`` for each
+  convolution routed to K3 or K6 (``models/blocks.routed_kernel``),
+  ``refvsr.k5`` inside ``refvsr.dcn`` for each deformable convolution
+  routed to K5 (``models/edvr.takes_k5``)."""
 
 from __future__ import annotations
 

@@ -33,10 +33,23 @@ tile width 64 pixels), a single row narrower than a tile, images of more
 tiles than the card holds blocks (each block walks several tiles and its
 halo ring wraps), and the model's 1080x1920x48. K3 in the path
 (``models/blocks.Conv2d.forward``): the 8K net's bf16 stream at a small
-frame launches it once for each convolution ``takes_k3`` admits, each such
-output within K3's tolerance of the library convolution on the same
+frame launches it once for each convolution ``routed_kernel`` names "k3",
+each such output within K3's tolerance of the library convolution on the same
 input, and the SR frames and carried state within the 8K configuration's
-``sr_rmse`` and ``state_rel`` limits of the library-only run. K4 bitwise,
+``sr_rmse`` and ``state_rel`` limits of the library-only run. K6 (f32, three
+TF32 products) against a convolution in f64 on the same inputs: its largest
+and its RMS error each at most twice cuDNN's f32 convolution's (TF32 off),
+at the f32 cells' shapes (270x480 at C 48, 36 and 32, 540x960x48,
+135x240x48), at odd sizes (9x13, 29x101, a single row, more rows than the
+card holds blocks); the same kernel with the low terms dropped (x rounded
+to TF32, the weights' low part zero: one TF32 pass) beyond that limit on
+both; at one-row and one-pixel shapes within 1e-5 of the largest plain
+output; its launch counter and its refusals on the card. K6 in the path:
+one first and one streamed window of RefVSR_MFID and of RefVSR_IR_MFID at
+their widths (f32) route each convolution ``routed_kernel`` names "k6",
+the launches equal to the ``refvsr.k6`` spans, each inside a
+``refvsr.conv``, and the SR frames within the cells' ``sr_rmse`` limit
+(1e-5) of the run whose convolutions all go to cuDNN. K4 bitwise,
 out-of-range indices clamped, at sizes up to its microbenchmark's (R 2048,
 L 128 bf16, P 2^20). The microbenchmark entry points at small sizes: each
 launches its own kernel and no other, K3 within its envelope, K4's check
@@ -93,6 +106,7 @@ from refvsr_tpu_torch.bench.ties import tied_rows
 from refvsr_tpu_torch.configs import get_config
 from refvsr_tpu_torch.data.png import (decode_png, encode_png, read_image,
                                        write_image)
+from refvsr_tpu_torch.ops.kernels import conv3x3_f32 as k6
 from refvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_bias,
                                                   conv3x3_bias_plain)
 from refvsr_tpu_torch.models.edvr import modulated_deform_conv_plain
@@ -529,8 +543,8 @@ def test_conv3x3_kernel_matches_plain(cuda_device, h, w, c):
 def test_k3_route_in_the_8k_stream(cuda_device, monkeypatch):
     """RefVSR_MFID_8K at full width, bf16, at a small frame (64x128 LR,
     T = 7): one ``forward_first`` and one ``forward_stream`` window. K3
-    launches once for each ``Conv2d`` call that ``takes_k3`` admits, and
-    each such call's output lies within K3's tolerance of the library
+    launches once for each ``Conv2d`` call that ``routed_kernel`` routes to
+    it, and each such call's output lies within K3's tolerance of the library
     convolution of the same module on the same input; both windows' SR
     frames and the carried state lie within the 8K configuration's
     ``sr_rmse`` and ``state_rel`` limits of the run whose convolutions all
@@ -571,7 +585,7 @@ def test_k3_route_in_the_8k_stream(cuda_device, monkeypatch):
 
     def check_routed(m, args, out):
         x = args[0]
-        if blocks.takes_k3(m, x):
+        if blocks.routed_kernel(m, x) == "k3":
             want = nn.Conv2d.forward(m, x.permute(0, 3, 1, 2))
             ratios.append(envelope_ratio(out[0], want[0].permute(1, 2, 0)))
 
@@ -593,6 +607,211 @@ def test_k3_route_in_the_8k_stream(cuda_device, monkeypatch):
     for a, b in zip(got_state, want_state):
         rel = torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)
         assert float(rel) <= limits["state_rel"]
+
+
+def _k6_operands(h, w, c, device, seed):
+    """Seeded x (H, W, C) and a Conv2d's weight and bias (torch's default
+    init, as ``init_weights`` draws them), f32 on `device`."""
+    from refvsr_tpu_torch.models.blocks import Conv2d, init_weights
+    conv = Conv2d(c, c, 3)
+    init_weights(conv, torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn((h, w, c), generator=g).to(device)
+    return x, conv.weight.detach().to(device), conv.bias.detach().to(device)
+
+
+def _errors(got, want):
+    """max |got - want| over max |want| and the RMS error over the RMS."""
+    d = got.double() - want
+    return (float(d.abs().max() / want.abs().max()),
+            float(d.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [
+    (270, 480, 48), (270, 480, 36), (270, 480, 32), (540, 960, 48),
+    (135, 240, 48), (9, 13, 48), (9, 13, 36), (9, 13, 32), (29, 101, 32),
+    (1, 130, 48), (300, 700, 36)])
+def test_conv3x3_f32_kernel_against_f64(cuda_device, h, w, c):
+    import torch.nn.functional as F
+    x, weight, bias = _k6_operands(h, w, c, cuda_device, seed=h + w + c)
+    wp = k6.pack(weight)
+    b = bias.reshape(1, 1, c).contiguous()
+    before = k6.conv3x3_f32.launches
+    got = k6.conv3x3_f32(x, wp, b)
+    assert k6.conv3x3_f32.launches == before + 1
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    nchw = x.permute(2, 0, 1)[None]
+    want = F.conv2d(nchw.double(), weight.double(), bias.double(),
+                    padding=1)[0].permute(1, 2, 0)
+    library = F.conv2d(nchw, weight, bias, padding=1)[0].permute(1, 2, 0)
+    # one TF32 pass: x's low part and the weights' low part dropped
+    wp_hi = wp.clone()
+    wp_hi[1].zero_()
+    one_pass = k6.conv3x3_f32(k6._tf32(x), wp_hi, b)
+    limit = [2 * e for e in _errors(library, want)]
+    err = _errors(got, want)
+    control = _errors(one_pass, want)
+    assert err[0] <= limit[0] and err[1] <= limit[1], (err, limit)
+    assert control[0] > limit[0] and control[1] > limit[1], (control, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [(1, 1, 48), (1, 7, 32), (2, 65, 36),
+                                   (64, 64, 48), (3, 200, 36)])
+def test_conv3x3_f32_kernel_matches_plain(cuda_device, h, w, c):
+    x, weight, bias = _k6_operands(h, w, c, cuda_device, seed=c)
+    wp, b = k6.pack(weight), bias.reshape(1, 1, c).contiguous()
+    got = k6.conv3x3_f32(x, wp, b)
+    want = k6.conv3x3_f32_plain(x, wp, b)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_conv3x3_f32_kernel_counts_and_refuses(cuda_device):
+    x, weight, bias = _k6_operands(16, 80, 36, cuda_device, seed=5)
+    wp, b = k6.pack(weight), bias.reshape(1, 1, 36).contiguous()
+    before = k6.conv3x3_f32.launches
+    for args in ((x.to(torch.bfloat16), wp, b), (x[..., :32], wp, b),
+                 (x.transpose(0, 1), wp, b), (x, wp[:, 8:], b),
+                 (x, wp.to(torch.bfloat16), b), (x, wp, b[..., :35]),
+                 (torch.zeros((16, 80, 64), device=cuda_device), wp, b),
+                 (x, wp.cpu(), b)):
+        with pytest.raises((TypeError, ValueError)):
+            k6.conv3x3_f32(*args)
+    assert k6.conv3x3_f32.launches == before
+    k6.conv3x3_f32(x, wp, b)
+    k6.conv3x3_f32(x, wp, b)
+    assert k6.conv3x3_f32.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", sorted(k6.PLANS))
+def test_conv3x3_f32_launcher_holds_the_plan(cuda_device, c):
+    """The launcher takes the plan the weights were packed for
+    (``conv3x3_f32.PLANS``) and refuses any other than its Plan<C>, so the
+    two copies of the tile plan cannot part silently."""
+    from refvsr_tpu_torch.ops.kernels import build
+    x, weight, bias = _k6_operands(9, 13, c, cuda_device, seed=c)
+    wp, b = k6.pack(weight), bias.reshape(1, 1, c).contiguous()
+    y = torch.empty_like(x)
+    fn = build.function("conv3x3_f32", "conv3x3_f32_launch", k6._ARGS)
+    plans = {k6.PLANS[c]} | {p for p in k6.PLANS.values()} | {
+        (n, 2 if vec == 4 else 4) for n, vec in k6.PLANS.values()}
+    for plan in sorted(plans):
+        args = (x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
+                9, 13, c, *plan)
+        if plan == k6.PLANS[c]:
+            build.launch(fn, x.device, *args)
+        else:
+            with pytest.raises(RuntimeError):
+                build.launch(fn, x.device, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, k6.conv3x3_f32(x, wp, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "k3"),
+                                          (torch.float32, "k6")])
+def test_spatial_bands_run_the_kernel_of_one_rank(cuda_device, monkeypatch,
+                                                  dtype, kernel):
+    """Two ranks' bands of a 270x480x48 image (each rank's row exchange
+    served from the whole image, in one process): each band's convolution
+    launches the kernel the whole image's does, and the cropped bands are
+    the whole image's output bit for bit (the kernels sum each output
+    pixel in one order wherever it lies)."""
+    from refvsr_tpu_torch.models.blocks import Conv2d, init_weights
+    from refvsr_tpu_torch.parallel import mesh, spatial
+    conv = Conv2d(48, 48, 3)
+    init_weights(conv, torch.Generator().manual_seed(12))
+    conv = conv.to(cuda_device, dtype)
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn((1, 270, 480, 48), generator=g).to(cuda_device, dtype)
+    bands = [x[:, :135], x[:, 135:]]
+
+    def all_gather_rows(edge, dim, sizes=None):
+        e = edge.shape[1] // 2
+        return torch.cat([torch.cat([b[:, :e], b[:, -e:]], 1)
+                          for b in bands], 1)
+    monkeypatch.setattr(mesh, "all_gather_rows", all_gather_rows)
+    fn = conv3x3_bias if kernel == "k3" else k6.conv3x3_f32
+    with torch.inference_mode():
+        before = fn.launches
+        want = conv(x)
+        got = []
+        for rank in range(2):
+            monkeypatch.setattr(spatial, "_CTX",
+                                spatial.SpatialCtx(2, rank, 4, {135: 270}))
+            got.append(conv(bands[rank]))
+        assert fn.launches == before + 3
+    assert torch.equal(torch.cat(got, 1), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,hw", [("RefVSR_MFID", (64, 96)),
+                                       ("RefVSR_IR_MFID", (32, 44))])
+def test_k6_route_in_the_f32_streams(cuda_device, monkeypatch, config, hw):
+    """A first and a streamed window of the f32 models at their widths
+    (RefVSR_MFID: 48 channels; RefVSR_IR_MFID: 36, EDVR-M at 64): each
+    convolution ``routed_kernel`` names "k6" launches K6 once, with a
+    ``refvsr.k6`` span inside its ``refvsr.conv``; the SR frames lie within
+    the cells' ``sr_rmse`` limit (1e-5) of the same windows with every
+    convolution on cuDNN."""
+    import json
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from refvsr_tpu_torch.eval.stream import StreamRunner
+    from refvsr_tpu_torch.models import blocks
+    from refvsr_tpu_torch.models.refvsr import build_refvsr
+    cfg = get_config(config)
+    limits = json.loads((Path(__file__).resolve().parents[1] / "benchmark"
+                         / "configs" / f"{config}.json").read_text()
+                        )["limits"]
+    net = build_refvsr(cfg, device="cpu", seed=7)
+    t = cfg.frame_num
+    g = torch.Generator().manual_seed(8)
+    lrs = torch.rand((1, t + 1, *hw, 3), generator=g)
+    refs = torch.rand((1, t + 1, *hw, 3), generator=g)
+    routed = []
+
+    def count(m, args, out):
+        routed.append(blocks.routed_kernel(m, args[0]) == "k6")
+
+    def stream():
+        hooks = [m.register_forward_hook(count) for m in net.modules()
+                 if isinstance(m, blocks.Conv2d)]
+        runner = StreamRunner(
+            net, cfg.reset_branch, device=cuda_device,
+            keyframe_stride=cfg.keyframe_stride
+            if cfg.network == "RefVSR_IR" else None)
+        outs, counts = [], []
+        for wi in range(2):
+            routed.clear()
+            before = k6.conv3x3_f32.launches
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                outs.append(runner.process(lrs[:, wi:wi + t],
+                                           refs[:, wi:wi + t], wi == 0)[0])
+            k6_spans = [e for e in prof.events() if e.name == "refvsr.k6"]
+            assert all(e.cpu_parent.name == "refvsr.conv" for e in k6_spans)
+            counts.append((sum(routed), len(k6_spans),
+                           k6.conv3x3_f32.launches - before))
+        for hk in hooks:
+            hk.remove()
+        return outs, counts
+
+    got, counts = stream()
+    assert all(n == spans == launches > 0 for n, spans, launches in counts)
+    monkeypatch.setattr(blocks, "routed_kernel", lambda *a: None)
+    before = k6.conv3x3_f32.launches
+    want, _ = stream()
+    assert k6.conv3x3_f32.launches == before
+    for a, b in zip(got, want):
+        assert np.isfinite(a).all()
+        assert float(np.sqrt(np.mean((a - b) ** 2))) <= limits["sr_rmse"]
 
 
 @pytest.mark.cuda

@@ -13,7 +13,8 @@
   recorded positions (its own differing choices counted), rows picked as
   a rank picks its share of the batch.
 - The kernel cases (``k1_case``, ``k1_bwd_case``, ``k2_case``,
-  ``k2_bwd_case``, ``k5_case``) and ``checking_k3`` on the CPU, where each
+  ``k2_bwd_case``, ``k5_case``, ``k6_case``) and ``checking_k3`` on the
+  CPU, where each
   wrapper runs its plain version: each passes on sound inputs, and ends
   the smoke when
   its wrapper returns the plain result with a planted fault (K1: a dead
@@ -29,8 +30,10 @@ import chip_smoke
 from refvsr_tpu_torch.bench.dcn_cases import make_inputs as make_dcn_inputs
 from refvsr_tpu_torch.bench.microbench_conv import make_inputs
 from refvsr_tpu_torch.losses.contextual import cx_core
+from refvsr_tpu_torch.models.blocks import Conv2d, init_weights
 from refvsr_tpu_torch.ops.kernels import argmax_matmul as k2_mod
 from refvsr_tpu_torch.ops.kernels import conv3x3 as k3_mod
+from refvsr_tpu_torch.ops.kernels import conv3x3_f32 as k6_mod
 from refvsr_tpu_torch.ops.kernels import deform_conv as k5_mod
 from refvsr_tpu_torch.ops.kernels import warp_sample as k1_mod
 
@@ -334,12 +337,27 @@ def _k5(fault):
             lambda: chip_smoke.k5_case("cpu", x, off, mask, wgt, bias, 4))
 
 
+def _k6(fault):
+    conv = Conv2d(36, 36, 3)
+    init_weights(conv, torch.Generator().manual_seed(6))
+    wp, bias = conv.packed("k6")
+    x = torch.randn((9, 13, 36), generator=torch.Generator().manual_seed(7))
+    real = k6_mod.conv3x3_f32
+
+    def faulty(*args):
+        out = real(*args)
+        return _moved(out, 10 * 1e-5 * float(out.abs().max()))
+    return (k6_mod, "conv3x3_f32", faulty,
+            lambda: chip_smoke.k6_case("cpu", x, wp, bias))
+
+
 @pytest.mark.parametrize("case,fault", [
     (_k1, None), (_k1, "dead"), (_k1, "moved"),
     (_k1_bwd, None), (_k1_bwd, "dx"), (_k1_bwd, "dflow"),
     (_k2, None), (_k2, "conf"), (_k2, "pick"), (_k2, "range"),
     (_k2_bwd, None), (_k2_bwd, "d_lr"), (_k2_bwd, "d_ref"),
-    (_k3, None), (_k3, "epilogue"), (_k5, None), (_k5, "moved")])
+    (_k3, None), (_k3, "epilogue"), (_k5, None), (_k5, "moved"),
+    (_k6, None), (_k6, "moved")])
 def test_kernel_checks_pass_sound_calls_and_stop_at_a_fault(monkeypatch,
                                                              case, fault):
     """The smoke's case of each kernel on the CPU, where the wrapper runs

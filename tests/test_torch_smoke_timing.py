@@ -14,7 +14,7 @@ import chip_smoke
 # moves to the host (summed) and their replay against the plain versions
 PHASES = ["build", "k1", "k2", "k1_backward", "k2_backward",
           "bench_entries", "small_agreement", "small_training", "ir_small", "main_path",
-          "serving", "pipelined", "spatial", "ddp", "training", "to_host",
+          "serving", "pipelined", "mfid_f32", "spatial", "ddp", "training", "to_host",
           "bench_train", "train_entry", "ir_eval", "eval_cli_8k",
           "ir_train", "train_cli_ddp", "path_cases"]
 # each function smoke() calls for a phase, with what it returns
@@ -26,6 +26,7 @@ STUBS = {
     "phase_small_training": None, "phase_ir_small": None,
     "phase_main_path": ({}, {}, {}),
     "phase_serving": ({}, {}), "phase_pipelined": ({}, {}),
+    "phase_mfid_f32": {},
     "phase_spatial": {},
     "start_trees": None, "phase_ddp": {},
     "phase_training": ({}, {}),
